@@ -18,6 +18,19 @@ Phases (each one that fails ends the run with a non-zero exit):
      stats; all three trees must be equal.
   4. census_pums at scale 1.0 (299,285 cases, 40 attributes): the wide
      discrete-split case, impl="cuda" against impl="torch".
+  5. forest: a 16-tree random forest grown on SyD10M9A as the JAX
+     ensemble trainer grows each member (seed 0, bootstrap, mtry 3, the
+     CUDA build), packed on the card at M = 2^18; the traversal kernel
+     against its plain version at the full shape (T = 16, N = 10M) with and
+     without unknowns, at edge shapes (N = 1, 257, 1024, a lone leaf, a
+     census_pums forest) and against the per-tree oracle on a slice; times
+     the kernel, the plain version and predict() end to end.
+  6. serving: the forest published to a registry under build/, opened by a
+     ModelHandle on the card and served as 65,536 single-row requests by a
+     BatchPredictService over 4 replicas (policy ws, max_batch 1024); every
+     label must equal one batched predict of the same rows, the traversal
+     kernel must have served every batch, and the published arrays' crc32
+     must equal the in-memory forest's.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  It imports nothing of JAX or of the JAX
@@ -27,9 +40,12 @@ package: the data generators and the grow configuration are the port's.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -43,8 +59,19 @@ SYD_SEED = 0
 GROW = dict(max_nodes=1 << 18, frontier_slots=256)
 CENSUS_SCALE = 1.0
 CENSUS_BINS = 128
+# The forest of phases 5 and 6: the JAX ForestConfig defaults (seed 0,
+# bootstrap, mtry = ceil(sqrt(A))) at 16 trees; 4 trees on census_pums.
+FOREST_TREES = 16
+FOREST_SEED = 0
+CENSUS_FOREST_TREES = 4
+UNKNOWN_SHARE = 0.05
+SERVE_REQUESTS = 65_536
+SERVE_REPLICAS = 4
+SERVE_MAX_BATCH = 1024
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): memory, and the
+# CUDA cores' f32 rate, used for every scalar operation outside the tensor
+# cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
@@ -306,6 +333,235 @@ def grow_both(name, ds, cfg, dev) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 5: the packed forest and the traversal kernel
+# --------------------------------------------------------------------------
+
+def grow_forest(ds, cfg, n_trees):
+    """Forest members as the JAX trainer's per-tree task grows them:
+    ``frontier.build(ds, grow, attr_mask=s.attr_mask, case_w=s.case_w)``
+    with ``s = sampling.draw(seed, tree_id, ...)`` (the CUDA build)."""
+    from repro_torch.core import frontier
+    from repro_torch.ensemble import sampling
+    trees = []
+    for t in range(n_trees):
+        s = sampling.draw(FOREST_SEED, t, n_cases=ds.n_cases,
+                          n_attrs=ds.n_attrs, base_w=ds.w)
+        trees.append(frontier.build(ds, cfg, attr_mask=s.attr_mask,
+                                    case_w=s.case_w))
+    return trees
+
+
+def _with_unknowns(x, gen):
+    import torch
+    x = x.clone()
+    x[torch.rand(x.shape, generator=gen, device=x.device)
+      < UNKNOWN_SHARE] = -1
+    return x
+
+
+def _infer_case(fo, x, cont, what: str) -> None:
+    """Kernel labels == plain labels, exactly."""
+    import torch
+    from repro_torch.kernels import ref, tree_infer
+    tab, depth = fo.node_table(), fo.n_levels
+    got = tree_infer.forest_predict(tab, x, cont, max_depth=depth)
+    want = ref.forest_predict_ref(tab, x, cont, max_depth=depth)
+    check(got.shape == (fo.n_trees, x.shape[0]) and got.dtype == torch.int32,
+          f"forest_predict: bad output {tuple(got.shape)} {got.dtype} "
+          f"({what})")
+    check(torch.equal(got, want), f"forest_predict != plain ({what}): "
+          f"{int((got != want).sum())} labels differ")
+
+
+def check_forest(syd, census, cfg, gen, dev) -> tuple[dict, object, dict]:
+    """Phase 5.  Returns (kernel record, the SyD forest, info)."""
+    import torch
+    from repro_torch.core.tree import Tree
+    from repro_torch.infer import forest as F
+    from repro_torch.kernels import histogram, ref, split_gain, tree_infer
+
+    histogram.LAUNCHES = split_gain.LAUNCHES = 0
+    t0 = time.perf_counter()
+    trees = grow_forest(syd, cfg, FOREST_TREES)
+    torch.cuda.synchronize()
+    grow_s = time.perf_counter() - t0
+    grow_launches = dict(frontier_histogram=histogram.LAUNCHES,
+                         split_gain=split_gain.LAUNCHES)
+    check(min(grow_launches.values()) > 0,
+          f"forest build launched no kernel: {grow_launches}")
+    fo = F.Forest.pack(trees, capacity=cfg.max_nodes, device=dev)
+    t_dim, m_dim = fo.n_trees, fo.capacity
+    check((t_dim, m_dim) == (FOREST_TREES, cfg.max_nodes),
+          f"packed forest is {t_dim} x {m_dim}")
+
+    x = torch.as_tensor(syd.x).to(dev)
+    cont = torch.as_tensor(syd.attr_is_cont).to(dev)
+    n, a_dim = x.shape
+    x_unk = _with_unknowns(x, gen)
+    _infer_case(fo, x, cont, "full shape")
+    _infer_case(fo, x_unk, cont, "full shape, 5% unknown")
+    for rows in (1, 257, SERVE_MAX_BATCH):
+        _infer_case(fo, x_unk[:rows].contiguous(), cont, f"N = {rows}")
+    # the per-tree oracle (tree.predict per member) on a slice
+    head = x_unk[:100_000].contiguous()
+    check(torch.equal(F.predict_per_tree(fo, head, cont),
+                      F.predict_per_tree(fo, head, cont, impl="ref")),
+          "forest_predict != the per-tree oracle")
+    # a lone leaf: every case gets its class, at any depth
+    leaf = Tree.empty(1, syd.n_classes, device=dev)
+    leaf.node_class[0] = 1
+    leaf.n_nodes.fill_(1)
+    lone = F.Forest.pack([leaf], device=dev)
+    check(lone.n_levels == 1, f"lone leaf has {lone.n_levels} levels")
+    _infer_case(lone, x_unk[:257].contiguous(), cont, "lone leaf")
+    check(bool((F.predict(lone, x_unk[:257], cont) == 1).all()),
+          "lone leaf forest does not predict its class")
+    # wide discrete splits: a census_pums forest (A = 40)
+    c_fo = F.Forest.pack(grow_forest(census, cfg, CENSUS_FOREST_TREES),
+                         device=dev)
+    c_x = torch.as_tensor(census.x).to(dev)
+    c_cont = torch.as_tensor(census.attr_is_cont).to(dev)
+    _infer_case(c_fo, c_x, c_cont, "census_pums")
+    _infer_case(c_fo, _with_unknowns(c_x, gen), c_cont,
+                "census_pums, 5% unknown")
+
+    # timing at the full shape; then predict() as a user calls it, from
+    # host rows to labels on the card
+    tab, depth = fo.node_table(), fo.n_levels
+    ms = cuda_ms(lambda: tree_infer.forest_predict(
+        tab, x, cont, max_depth=depth), reps=5)
+    plain_ms = cuda_ms(lambda: ref.forest_predict_ref(
+        tab, x, cont, max_depth=depth), reps=2, warmup=1)
+    ms_batch = cuda_ms(lambda: tree_infer.forest_predict(
+        tab, x[:SERVE_MAX_BATCH], cont, max_depth=depth), reps=50)
+    F.predict(fo, syd.x, syd.attr_is_cont)
+    torch.cuda.synchronize()
+    tree_infer.LAUNCHES = 0
+    t0 = time.perf_counter()
+    labels = F.predict(fo, syd.x, syd.attr_is_cont)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    predict_launches = tree_infer.LAUNCHES
+    check(predict_launches == 1,
+          f"predict() launched the traversal kernel {predict_launches} times")
+    acc = float((labels.cpu().numpy() == syd.y).mean())
+    # bytes: the rows, every table and the labels once each; operations:
+    # the descent steps this data takes (the depth of each (tree, case)'s
+    # leaf, read through the plain version with depths in the class
+    # column) times 6 integer operations a step (leaf test, unknown test,
+    # threshold test, two clip bounds, child add) at the scalar peak
+    depth_tab = tab.clone()
+    depth_tab[..., tree_infer.COL_CLASS] = fo.node_depth
+    steps = int(ref.forest_predict_ref(depth_tab, x, cont, max_depth=depth)
+                .sum(dtype=torch.int64))
+    del depth_tab
+    n_bytes = n * a_dim * 4 + t_dim * m_dim * 32 + t_dim * n * 4
+    bound_ms, bound_by = bound(n_bytes, 6 * steps)
+    bytes_ms, ops_ms = bound(n_bytes, 0)[0], bound(0, 6 * steps)[0]
+    print(f"forest_predict: T={t_dim} M={m_dim} N={n} A={a_dim} "
+          f"depth={depth} {ms:.4f} ms (plain {plain_ms:.4f}, bound "
+          f"{bound_ms:.4f} by {bound_by}: bytes {bytes_ms:.4f}, "
+          f"operations {ops_ms:.4f}); N={SERVE_MAX_BATCH} "
+          f"{ms_batch:.4f} ms; predict() {predict_s * 1e3:.3f} ms, "
+          f"{predict_launches} launch")
+    record = dict(
+        name="forest_predict", route="cuda",
+        source="src/repro_torch/kernels/csrc/tree_infer.cu",
+        replaces="src/repro/kernels/tree_infer.py:103",
+        jax="repro.kernels.tree_infer.forest_predict",
+        max_abs_err=0, ms=ms, kernel_ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        shape=dict(T=t_dim, M=m_dim, N=n, A=a_dim, depth=depth))
+    info = dict(forest_trees=t_dim, capacity=m_dim, n_levels=depth,
+                descent_steps=steps,
+                tree_nodes=[t.size for t in trees], grow_s=grow_s,
+                grow_launches=grow_launches, predict_s=predict_s,
+                predict_launches=predict_launches, forest_batch_ms=ms_batch,
+                train_accuracy=acc, census_trees=c_fo.n_trees,
+                census_capacity=c_fo.capacity)
+    print(json.dumps(info))
+    return record, fo, info
+
+
+# --------------------------------------------------------------------------
+# phase 6: the serving path
+# --------------------------------------------------------------------------
+
+def _crc(arr) -> int:
+    import numpy as np
+    return zlib.crc32(np.ascontiguousarray(arr).tobytes())
+
+
+def serve(fo, syd, dev) -> dict:
+    """Publish -> ModelHandle -> BatchPredictService -> forest_predict."""
+    import numpy as np
+    from repro_torch.infer import forest as F
+    from repro_torch.infer import registry
+    from repro_torch.infer.service import (BatchPredictService,
+                                           InferReplica, PredictRequest)
+    from repro_torch.kernels import tree_infer
+    from repro_torch.obs.metrics import Registry
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="smoke_registry.", dir=build)
+    try:
+        path = registry.publish(root, "syd16", fo,
+                                metadata={"seed": FOREST_SEED,
+                                          "n_trees": FOREST_TREES})
+        handle = registry.ModelHandle(root, "syd16")
+        check(handle.stable.device.type == "cuda",
+              f"the handle's forest is on {handle.stable.device}")
+        rows = syd.x[:SERVE_REQUESTS]
+        want = F.predict(fo, rows, syd.attr_is_cont).cpu().numpy()
+        metrics = Registry()
+        service = BatchPredictService(
+            [InferReplica.from_handle(handle, syd.attr_is_cont)
+             for _ in range(SERVE_REPLICAS)],
+            handle=handle, policy="ws", max_batch=SERVE_MAX_BATCH,
+            metrics=metrics)
+        tree_infer.LAUNCHES = 0
+        t0 = time.perf_counter()
+        for uid in range(SERVE_REQUESTS):
+            service.submit(PredictRequest(uid=uid, x_row=rows[uid]))
+        results = service.run_until_drained()
+        serve_s = time.perf_counter() - t0
+        launches = tree_infer.LAUNCHES
+        check(not service.failed, f"{len(service.failed)} requests failed: "
+              f"{service.failed[:3]}")
+        check(len(results) == SERVE_REQUESTS,
+              f"{len(results)} of {SERVE_REQUESTS} requests served")
+        got = np.empty(SERVE_REQUESTS, np.int64)
+        got[[r.uid for r in results]] = [r.label for r in results]
+        check(np.array_equal(got, want),
+              f"served labels != batched predict at "
+              f"{int((got != want).sum())} requests")
+        batches = int(sum(s["value"] for s in metrics.snapshot()[
+            "infer_replica_batches_total"]["series"]))
+        check(launches > 0 and launches == batches,
+              f"{launches} traversal launches for {batches} batches")
+        # the published version reads back bit for bit
+        loaded, manifest = registry.load(path)
+        for name, arr in fo.to_numpy().items():
+            crc = _crc(arr)
+            check(crc == manifest["arrays"][name]["crc32"]
+                  and crc == _crc(loaded.to_numpy()[name]),
+                  f"published {name} crc32 != the in-memory forest's")
+        check(registry.verify(path), "published version fails verify()")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    info = dict(requests=SERVE_REQUESTS, replicas=SERVE_REPLICAS,
+                max_batch=SERVE_MAX_BATCH, serve_s=serve_s,
+                requests_per_s=SERVE_REQUESTS / serve_s, batches=batches,
+                tree_infer_launches=launches, stats=service.stats())
+    print(f"serve: {SERVE_REQUESTS} requests in {serve_s:.3f} s "
+          f"({info['requests_per_s']:.1f} requests/s), {batches} batches, "
+          f"{launches} forest_predict launches")
+    print(json.dumps(info))
+    return info
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -363,20 +619,37 @@ def main() -> int:
 
     # ---- 3. SyD10M9A, the main path
     cfg = GrowConfig(**GROW)
+    t0 = time.perf_counter()
     launches = grow_both("syd10m9a", syd, cfg, dev)
+    times["syd_builds_s"] = time.perf_counter() - t0
     hist_rec["launches"] = launches["frontier_histogram"]
     gain_rec["launches"] = launches["split_gain"]
-    del syd
 
     # ---- 4. census_pums: wide discrete splits
     t0 = time.perf_counter()
     census = datasets.load("census_pums", scale=CENSUS_SCALE,
                            max_bins=CENSUS_BINS)
     times["census_generate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     grow_both("census_pums", census, cfg, dev)
+    times["census_builds_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    # ---- 5. the packed forest and the traversal kernel
+    t0 = time.perf_counter()
+    infer_rec, forest, _ = check_forest(syd, census, cfg, gen, dev)
+    times["forest_s"] = time.perf_counter() - t0
+    del census
+    torch.cuda.empty_cache()
+
+    # ---- 6. the serving path
+    t0 = time.perf_counter()
+    served = serve(forest, syd, dev)
+    times["serve_s"] = time.perf_counter() - t0
+    infer_rec["launches"] = served["tree_infer_launches"]
 
     print(json.dumps({"phase_seconds": times}))
-    print(json.dumps({"kernels": [hist_rec, gain_rec]}))
+    print(json.dumps({"kernels": [hist_rec, gain_rec, infer_rec]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

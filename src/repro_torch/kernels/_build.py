@@ -17,7 +17,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-KERNELS = ("histogram", "split_gain")
+KERNELS = ("histogram", "split_gain", "tree_infer")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # -fmad=false: no fused multiply-add contraction, so the split-gain kernel

@@ -8,9 +8,10 @@ the dynamic attribute) and the number of blocks in flight:
               sub-histogram in shared memory; block_t cases per block.
   split_gain: one block per (slot, attribute) holds its (B, C) tile twice
               (scan ping-pong); threads per block cover the bins.
+  tree_infer: one thread per (tree, case); no shared memory.
 
-``GrowConfig.block_t`` / ``block_k`` / ``block_b`` pin the sizes; None means
-the heuristics below.
+``GrowConfig.block_t`` / ``block_k`` / ``block_b`` pin the splitAtt sizes;
+``block_n`` pins the traversal's.  None means the heuristics below.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ SMEM_MAX = 232_448
 # of 512 threads share an SM.
 HIST_SMEM_BUDGET = 112 * 1024
 HIST_THREADS = 512
+# Forest traversal: cases (threads) per block.
+INFER_THREADS = 256
 # Blocks per launch to aim for: a few waves over the H100's 132 SMs.
 H100_SMS = 132
 TARGET_BLOCKS = 4 * H100_SMS
@@ -42,6 +45,11 @@ class HistPlan:
 @dataclasses.dataclass(frozen=True)
 class GainPlan:
     threads: int        # bins scored per pass of a block
+
+
+@dataclasses.dataclass(frozen=True)
+class InferPlan:
+    threads: int        # cases per block, one thread each
 
 
 def plan_histogram(*, n_cases: int, n_slots: int, n_bins: int,
@@ -81,3 +89,20 @@ def plan_split_gain(*, n_bins: int, n_classes: int,
         raise ValueError(f"split-gain threads must be a multiple of 32 in "
                          f"[32, 1024], got {threads}")
     return GainPlan(threads=int(threads))
+
+
+def plan_infer_blocks(*, n_cases: int,
+                      block_n: int | None = None) -> InferPlan:
+    """Forest-traversal block for ``n_cases`` cases (pinned ``block_n``
+    wins): INFER_THREADS, no wider than the cases, in whole warps.
+
+    The TPU planner sized a case tile to hold the one-hot expansion and the
+    table in VMEM; here a thread holds one case and reads the table through
+    the read-only cache, so only the block width is left to choose.
+    """
+    if block_n is None:
+        block_n = min(INFER_THREADS, 32 * -(-max(1, n_cases) // 32))
+    if block_n % 32 or not 32 <= block_n <= 1024:
+        raise ValueError(f"traversal threads must be a multiple of 32 in "
+                         f"[32, 1024], got {block_n}")
+    return InferPlan(threads=int(block_n))

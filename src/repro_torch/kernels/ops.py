@@ -1,4 +1,4 @@
-"""Dispatch of the splitAtt kernels by the tensors' device.
+"""Dispatch of the CUDA kernels by the tensors' device.
 
 A CUDA tensor launches the hand-written kernel (or the launch raises); a CPU
 tensor runs the plain version of :mod:`repro_torch.kernels.ref`.  There is
@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import histogram, ref
+from repro_torch.kernels import histogram, ref, tree_infer
 from repro_torch.kernels import split_gain as _split_gain
 
 
@@ -40,3 +40,13 @@ def split_gain(hist, total_w, attr_is_cont, n_bins, *, min_objs: float = 2.0,
         return _split_gain.split_gain(hist, total_w, attr_is_cont, n_bins,
                                       block_b=block_b, **kw)
     return ref.split_gain_ref(hist, total_w, attr_is_cont, n_bins, **kw)
+
+
+def forest_predict(node_tab, x_bins, attr_is_cont, *, max_depth: int,
+                   block_n: int | None = None) -> torch.Tensor:
+    """(T, N) leaf classes: CUDA traversal kernel or plain version."""
+    if _is_cuda(node_tab):
+        return tree_infer.forest_predict(node_tab, x_bins, attr_is_cont,
+                                         max_depth=max_depth, block_n=block_n)
+    return ref.forest_predict_ref(node_tab, x_bins, attr_is_cont,
+                                  max_depth=max_depth)

@@ -1,0 +1,89 @@
+"""Wrapper of the CUDA forest-traversal kernel (``csrc/tree_infer.cu``).
+
+Replaces the JAX package's Pallas ``forest_predict``: the same packed
+``(T, M, NODE_COLS)`` node table, ``(N, A)`` binned cases (-1 unknown) and
+``(A,)`` continuous flags in, the ``(T, N)`` int32 leaf classes out.  CUDA
+tensors only; the plain version is
+:func:`repro_torch.kernels.ref.forest_predict_ref`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, autotune
+
+#: Column layout of the packed node table (see ``Forest.node_table``).
+COL_ATTR, COL_SPLIT, COL_CHILD0, COL_NCHILD, COL_HEAVY, COL_CLASS = range(6)
+NODE_COLS = 8          # 6 live columns padded to 8: two int4 loads a row
+
+# Launches of the kernel in this process (the main path's proof of use).
+LAUNCHES = 0
+
+_P = ctypes.c_void_p
+_ARGTYPES = [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("tree_infer")
+    lib.forest_predict_launch.argtypes = _ARGTYPES
+    lib.forest_predict_launch.restype = ctypes.c_int
+    lib.forest_predict_error.argtypes = [ctypes.c_int]
+    lib.forest_predict_error.restype = ctypes.c_char_p
+    return lib
+
+
+def forest_predict(node_tab: torch.Tensor, x_bins: torch.Tensor,
+                   attr_is_cont: torch.Tensor, *, max_depth: int,
+                   block_n: int | None = None) -> torch.Tensor:
+    """(T, N) int32 leaf classes of ``node_tab`` int32 (T, M, NODE_COLS),
+    ``x_bins`` int32 (N, A) and ``attr_is_cont`` bool (A,), descending at
+    most ``max_depth`` levels (a host integer: the forest's ``n_levels``).
+
+    ``block_n`` pins the cases per thread block (None: the autotune plan).
+    """
+    global LAUNCHES
+    dev = node_tab.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA forest traversal takes CUDA tensors, "
+                         f"got {dev}")
+    if node_tab.ndim != 3 or node_tab.shape[-1] != NODE_COLS:
+        raise ValueError(f"node_tab must be (T, M, {NODE_COLS}), got shape "
+                         f"{tuple(node_tab.shape)}")
+    if x_bins.ndim != 2:
+        raise ValueError(f"x_bins must be (N, A), got shape "
+                         f"{tuple(x_bins.shape)}")
+    t_dim, m_dim, _ = node_tab.shape
+    n, a_dim = x_bins.shape
+    for t, name, dtype, shape in (
+            (node_tab, "node_tab", torch.int32, (t_dim, m_dim, NODE_COLS)),
+            (x_bins, "x_bins", torch.int32, (n, a_dim)),
+            (attr_is_cont, "attr_is_cont", torch.bool, (a_dim,))):
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"{name} must be a contiguous {dtype} {shape} tensor on "
+                f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if max_depth < 0:
+        raise ValueError(f"max_depth must be >= 0, got {max_depth}")
+    out = torch.empty((t_dim, n), dtype=torch.int32, device=dev)
+    if n == 0 or t_dim == 0:
+        return out
+    if m_dim == 0:
+        raise ValueError("node_tab needs M >= 1 (the root)")
+    plan = autotune.plan_infer_blocks(n_cases=n, block_n=block_n)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.forest_predict_launch(
+            node_tab.data_ptr(), x_bins.data_ptr(), attr_is_cont.data_ptr(),
+            out.data_ptr(), n, a_dim, t_dim, m_dim, int(max_depth),
+            plan.threads, stream)
+    if err:
+        raise RuntimeError("forest_predict launch failed: "
+                           + lib.forest_predict_error(err).decode())
+    LAUNCHES += 1
+    return out

@@ -8,7 +8,8 @@ one each test skips.  On the card:
 Histogram: exact for integral weights, atol 1e-4 / rtol 1e-5 for random f32
 weights (device atomics add in no fixed order).  Split gain: bins and the
 -inf pattern exact, scores within 1e-5 * (1 + |score|) (the discrete branch
-sums its bins in another order than torch.sum).
+sums its bins in another order than torch.sum).  Forest traversal: labels
+exact.
 """
 
 import numpy as np
@@ -93,3 +94,54 @@ def test_build_cuda_equals_torch_on_the_card(dev):
         assert histogram.LAUNCHES > h0 and split_gain.LAUNCHES > g0
         t_torch = frontier.build(ds, cfg, impl="torch", device=dev)
         assert trees_equal(t_cuda, t_torch)
+
+
+# (T, M, A, N): a lone root leaf, N = 1 and 257 (off every block), a random
+# 4-tree forest, wider tables up to 2^14 rows
+INFER_SHAPES = [(1, 1, 3, 1), (1, 1, 9, 257), (4, 64, 9, 1), (4, 64, 9, 257),
+                (4, 500, 6, 10_000), (3, 3000, 40, 5_000),
+                (2, 1 << 14, 9, 100_003)]
+
+
+@pytest.mark.parametrize("t,m,a,n", INFER_SHAPES)
+@pytest.mark.parametrize("block_n", [None, 32, 1024])
+def test_forest_predict_kernel_matches_plain(dev, t, m, a, n, block_n):
+    from _forest_tables import random_cases, random_forest_table
+    from repro_torch.kernels import ref, tree_infer
+    rng = np.random.default_rng(t * m + a)
+    cont = rng.random(a) < 0.5
+    tab, levels = random_forest_table(rng, t, m, cont, n_bins=16,
+                                      max_children=8, leaf_p=0.1)
+    x = random_cases(rng, n, cont, n_bins=16)
+    tab, x, cont = (torch.as_tensor(v, device=dev) for v in (tab, x, cont))
+    for depth in (levels, min(levels, 2)):
+        before = tree_infer.LAUNCHES
+        got = tree_infer.forest_predict(tab, x, cont, max_depth=depth,
+                                        block_n=block_n)
+        want = ref.forest_predict_ref(tab, x, cont, max_depth=depth)
+        torch.cuda.synchronize()
+        assert tree_infer.LAUNCHES == before + 1
+        assert got.dtype == torch.int32 and got.shape == (t, n)
+        assert torch.equal(got, want)
+
+
+def test_forest_predict_cuda_equals_torch_on_the_card(dev):
+    from repro_torch.core import frontier
+    from repro_torch.core.config import GrowConfig
+    from repro_torch.data import datasets
+    from repro_torch.infer import forest as F
+    from repro_torch.kernels import tree_infer
+    ds = datasets.load("census_pums", scale=0.01, max_bins=64)
+    cfg = GrowConfig(max_nodes=1 << 12, frontier_slots=64)
+    rng = np.random.default_rng(0)
+    trees = [frontier.build(ds, cfg, case_w=rng.integers(0, 3, ds.n_cases))
+             for _ in range(3)]
+    fo = F.Forest.pack(trees, weights=rng.uniform(0.5, 2, 3))
+    x = ds.x.copy()
+    x[rng.random(x.shape) < 0.05] = -1
+    before = tree_infer.LAUNCHES
+    got = F.predict(fo, x, ds.attr_is_cont)
+    assert tree_infer.LAUNCHES == before + 1
+    assert torch.equal(got, F.predict(fo, x, ds.attr_is_cont, impl="torch"))
+    assert torch.equal(F.predict_per_tree(fo, x, ds.attr_is_cont),
+                       F.predict_per_tree(fo, x, ds.attr_is_cont, impl="ref"))

@@ -139,3 +139,76 @@ def test_split_gain_ref_takes_the_strided_histogram_view():
     s1, b1 = ref.split_gain_ref(view, tw, cont, nb)
     s2, b2 = ref.split_gain_ref(view.contiguous(), tw, cont, nb)
     assert torch.equal(s1, s2) and torch.equal(b1, b2)
+
+
+# (T, M, A, N, block_n): a lone root leaf, N off the block, wide tables
+INFER_SHAPES = [(1, 1, 3, 5, 8), (3, 40, 4, 37, 8), (5, 64, 6, 100, 16),
+                (2, 200, 2, 257, 32), (4, 9, 1, 1, 8)]
+
+
+@pytest.mark.parametrize("t,m,a,n,block_n", INFER_SHAPES)
+@pytest.mark.parametrize("depth_cut", [0, 2, None])
+def test_forest_predict_ref_matches_jax_pallas(t, m, a, n, block_n,
+                                               depth_cut):
+    """Labels exact against the Pallas kernel in interpret mode: leaves and
+    padding rows (attr -1), unknowns, discrete bins >= nchild, truncated
+    descents."""
+    from _forest_tables import random_cases, random_forest_table
+    from repro.kernels import tree_infer as jtree_infer
+    rng = np.random.default_rng(t * m + a)
+    cont = rng.random(a) < 0.5
+    tab, levels = random_forest_table(rng, t, m, cont)
+    x = random_cases(rng, n, cont)
+    depth = levels if depth_cut is None else min(levels, depth_cut)
+    want = np.asarray(jtree_infer.forest_predict(
+        tab, x, cont, max_depth=depth, block_n=block_n, interpret=True))
+    got = ref.forest_predict_ref(*_t(tab, x, cont), max_depth=depth)
+    assert got.dtype == torch.int32 and got.shape == (t, n)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the CPU dispatch runs the plain version
+    assert torch.equal(ops.forest_predict(*_t(tab, x, cont),
+                                          max_depth=depth), got)
+
+
+def test_forest_predict_ref_leaves_absorb():
+    """Steps past the deepest leaf change nothing."""
+    from _forest_tables import random_cases, random_forest_table
+    rng = np.random.default_rng(11)
+    cont = np.array([True, False, True])
+    tab, levels = random_forest_table(rng, 3, 80, cont)
+    x = _t(random_cases(rng, 64, cont))[0]
+    args = (torch.as_tensor(tab), x, torch.as_tensor(cont))
+    assert torch.equal(ref.forest_predict_ref(*args, max_depth=levels),
+                       ref.forest_predict_ref(*args, max_depth=levels + 7))
+
+
+@pytest.mark.parametrize("n,threads", [(1, 32), (33, 64), (257, 256),
+                                       (10_000_000, 256)])
+def test_plan_infer_blocks(n, threads):
+    """256 threads a block, no wider than the cases, in whole warps."""
+    from repro_torch.kernels import autotune
+    assert autotune.plan_infer_blocks(n_cases=n).threads == threads
+
+
+def test_plan_infer_blocks_pins_and_refuses():
+    from repro_torch.kernels import autotune
+    assert autotune.plan_infer_blocks(n_cases=10, block_n=64).threads == 64
+    with pytest.raises(ValueError, match="multiple of 32"):
+        autotune.plan_infer_blocks(n_cases=10, block_n=48)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        autotune.plan_infer_blocks(n_cases=10, block_n=2048)
+
+
+def test_tree_infer_wrapper_refuses_cpu_tensors():
+    """A CPU tensor never reaches the kernel: the wrapper raises, and only
+    ops's device dispatch sends it to the plain version."""
+    from repro_torch.kernels import tree_infer
+    tab = torch.zeros((1, 1, tree_infer.NODE_COLS), dtype=torch.int32)
+    x = torch.zeros((3, 2), dtype=torch.int32)
+    cont = torch.zeros(2, dtype=torch.bool)
+    before = tree_infer.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tree_infer.forest_predict(tab, x, cont, max_depth=1)
+    assert tree_infer.LAUNCHES == before
+    assert torch.equal(ops.forest_predict(tab, x, cont, max_depth=1),
+                       torch.zeros((1, 3), dtype=torch.int32))
