@@ -31,6 +31,22 @@ Phases (each one that fails ends the run with a non-zero exit):
      label must equal one batched predict of the same rows, the traversal
      kernel must have served every batch, and the published arrays' crc32
      must equal the in-memory forest's.
+  7. flash attention: the flash kernel against its plain version on the
+     card at the six FLASH_CASES of the JAX package's tests, at D = 128 and
+     256 with ragged S (1, 63, 65, 1000), and at full gemma2_9b layer
+     shapes (B = 1, S = 7,000, H = 16, KV = 8, D = 256; window 4,096 and 0,
+     softcap 50) in bf16 and f32; times the kernel, the plain version and
+     torch's scaled_dot_product_attention (the library yardstick, never
+     called by the port) at S = 7,000 with window 0 and softcap 0.
+  8. LM serving: gemma2_9b at full width and depth (42 layers, 10.16B
+     parameters, bf16, random weights from seed 0) through
+     repro_torch.launch.serve's engine: one replica, 4 slots, max_seq
+     8,192, policy ws, greedy, 32 new tokens for each of 8 prompts of
+     7,000 / 5,121 / 4,096 / 3,000 / 1,537 / 777 / 256 / 33 tokens.  All 8
+     must complete with 32 tokens and no failure, through exactly 42 x 8
+     flash launches; each first token must equal the argmax of a separate
+     prefill of its prompt, and the 7,000-token prefill's logits with the
+     kernel must agree with those through the plain attention.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  It imports nothing of JAX or of the JAX
@@ -74,6 +90,45 @@ SERVE_MAX_BATCH = 1024
 # cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# and the tensor cores' dense bf16 rate, the flash kernel's operations bound
+BF16_TENSOR_OPS_PER_S = 989e12
+
+# Phase 7: the JAX package's FLASH_CASES (tests/test_kernels.py:113-121),
+# (B, S, H, KV, D, window, softcap, dtype), then gemma2's and yi's head dims
+# at ragged lengths, then gemma2_9b's layer shapes at S = 7,000.
+FLASH_CASES = [
+    (2, 24, 4, 2, 16, 0, 0.0, "float32"),
+    (1, 33, 4, 4, 8, 0, 0.0, "float32"),
+    (2, 24, 4, 2, 16, 7, 0.0, "float32"),
+    (2, 24, 4, 2, 16, 0, 30.0, "float32"),
+    (2, 40, 6, 2, 32, 9, 50.0, "float32"),
+    (2, 32, 4, 2, 16, 0, 0.0, "bfloat16"),
+] + [(1, s, 16, 8, d, w, 50.0, dt) for d in (128, 256)
+     for s in (1, 63, 65, 1000) for w in (0, 100)
+     for dt in ("float32", "bfloat16")]
+FLASH_S = 7_000
+GEMMA_LAYER = dict(H=16, KV=8, D=256)
+FLASH_FULL = [(1, FLASH_S, 16, 8, 256, w, 50.0, dt)
+              for w in (4096, 0) for dt in ("bfloat16", "float32")]
+# Kernel against plain: f32 differs by summation order only (the plain
+# version's matmuls run in full f32: TF32 off); bf16 by one rounding step of
+# an output near 1.
+FLASH_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
+
+# Phase 8: gemma2_9b serving at full width and depth.
+LM_ARCH = "gemma2_9b"
+LM_SEED = 0
+LM_SLOTS = 4
+LM_MAX_SEQ = 8_192
+LM_MAX_NEW = 32
+LM_PROMPTS = (7_000, 5_121, 4_096, 3_000, 1_537, 777, 256, 33)
+# Last-position logits of the 7,000-token prompt, kernel against plain
+# attention, through 42 bf16 layers (logits lie in (-30, 30): softcap).
+# The two attentions round their bf16 outputs apart and every later layer
+# carries the difference; measured on an H100: relative L2 error of the
+# logit vector 0.0196, largest difference 0.094.  Limits about 2.5x that.
+LM_LOGIT_REL_TOL = 0.05
+LM_LOGIT_ABS_TOL = 0.25
 
 # Split-gain score tolerance: the discrete branch sums per-bin entropy terms
 # in another order than the torch reduction (f32 rounding, about 1 ulp of
@@ -107,9 +162,10 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S
+          ) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -562,6 +618,240 @@ def serve(fo, syd, dev) -> dict:
     return info
 
 
+# --------------------------------------------------------------------------
+# phase 7: the flash kernel against its plain version
+# --------------------------------------------------------------------------
+
+def _flash_inputs(case, gen, dev):
+    import torch
+    b, s, h, kv, d, _, _, dtype = case
+    dt = getattr(torch, dtype)
+    return [torch.randn(shape, generator=gen, device=dev).to(dt)
+            for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d))]
+
+
+def _live_pairs(s: int, window: int) -> int:
+    """(q, k) pairs inside the causal window: sum over q of min(q+1, w)."""
+    if window <= 0 or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def _flash_bound(case) -> tuple[float, str]:
+    b, s, h, kv, d, window, _, dtype = case
+    size = 2 if dtype == "bfloat16" else 4
+    n_bytes = (2 * b * s * h * d + 2 * b * s * kv * d) * size
+    return bound(n_bytes, 4 * b * h * d * _live_pairs(s, window),
+                 BF16_TENSOR_OPS_PER_S)
+
+
+def _flash_case(case, gen, dev) -> float:
+    import torch
+    from repro_torch.kernels import flash_attention, ref
+    *_, window, cap, dtype = case
+    q, k, v = _flash_inputs(case, gen, dev)
+    got = flash_attention.flash_attention(q, k, v, window=window,
+                                          softcap=cap)
+    want = ref.flash_attention_ref(q, k, v, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    check(got.shape == q.shape and got.dtype == q.dtype,
+          f"flash: bad output {tuple(got.shape)} {got.dtype} at {case}")
+    check(bool(torch.isfinite(got).all()), f"flash: non-finite at {case}")
+    err = (got.float() - want.float()).abs().max().item()
+    check(err <= FLASH_TOL[dtype], f"flash != plain at {case}: max |diff| "
+          f"{err:.3g} > {FLASH_TOL[dtype]}")
+    return err
+
+
+def check_flash(gen, dev) -> dict:
+    """Phase 7.  Returns the kernel's record (launches filled in later)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    max_err = {"float32": 0.0, "bfloat16": 0.0}
+    for case in FLASH_CASES + FLASH_FULL:
+        err = _flash_case(case, gen, dev)
+        max_err[case[-1]] = max(max_err[case[-1]], err)
+
+    # timing at gemma2's layer shape, bf16 (the serving path's type)
+    h, kv, d = GEMMA_LAYER["H"], GEMMA_LAYER["KV"], GEMMA_LAYER["D"]
+    times = {}
+    for window, cap in ((0, 0.0), (0, 50.0), (4096, 50.0)):
+        case = (1, FLASH_S, h, kv, d, window, cap, "bfloat16")
+        q, k, v = _flash_inputs(case, gen, dev)
+        ms = cuda_ms(lambda: flash_attention.flash_attention(
+            q, k, v, window=window, softcap=cap), reps=5)
+        plain_ms = cuda_ms(lambda: ref.flash_attention_ref(
+            q, k, v, window=window, softcap=cap), reps=3, warmup=1)
+        times[(window, cap)] = (ms, plain_ms, *_flash_bound(case))
+    # the library call: causal GQA SDPA at window 0, softcap 0, on
+    # heads-major copies made outside the timed region; held to the kernel
+    case = (1, FLASH_S, h, kv, d, 0, 0.0, "bfloat16")
+    q, k, v = _flash_inputs(case, gen, dev)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True).transpose(1, 2)
+    mine = flash_attention.flash_attention(q, k, v)
+    lib_err = (lib.float() - mine.float()).abs().max().item()
+    check(lib_err <= FLASH_TOL["bfloat16"],
+          f"flash != scaled_dot_product_attention: {lib_err:.3g}")
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps=5)
+    ms, plain_ms, bound_ms, bound_by = times[(0, 0.0)]
+    for (window, cap), (t, pt, bd, by) in times.items():
+        print(f"flash_attention: S={FLASH_S} H={h} KV={kv} D={d} bf16 "
+              f"window={window} softcap={cap}: {t:.4f} ms (plain {pt:.4f}, "
+              f"bound {bd:.4f} by {by}, {t / bd:.1f}x)")
+    print(f"flash_attention: scaled_dot_product_attention {library_ms:.4f} "
+          f"ms at window 0, softcap 0 (max |diff| {lib_err:.3g}); max "
+          f"|kernel - plain| f32 {max_err['float32']:.3g}, bf16 "
+          f"{max_err['bfloat16']:.3g} over {len(FLASH_CASES + FLASH_FULL)} "
+          f"shapes")
+    glob, loc = times[(0, 50.0)], times[(4096, 50.0)]
+    return dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:127",
+        jax="repro.kernels.flash_attention.flash_attention",
+        max_abs_err=max(max_err.values()), max_abs_err_f32=max_err["float32"],
+        max_abs_err_bf16=max_err["bfloat16"], ms=ms, kernel_ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=library_ms, library_max_abs_diff=lib_err,
+        global_layer=dict(window=0, softcap=50.0, ms=glob[0],
+                          plain_ms=glob[1], bound_ms=glob[2]),
+        local_layer=dict(window=4096, softcap=50.0, ms=loc[0],
+                         plain_ms=loc[1], bound_ms=loc[2]),
+        shape=dict(B=1, S=FLASH_S, H=h, KV=kv, D=d, dtype="bfloat16",
+                   window=0, softcap=0.0))
+
+
+# --------------------------------------------------------------------------
+# phase 8: gemma2_9b serving at full width and depth
+# --------------------------------------------------------------------------
+
+def _timed(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def serve_lm(dev) -> dict:
+    """Phase 8.  Returns what it measured, the flash launches included."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models.model import build_model
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.serve.engine import Request
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tracer = Tracer()
+    (cfg, model, params, engine), init_s = _timed(
+        lambda: serve_mod.build_engine(
+            LM_ARCH, reduced=False, n_replicas=1, n_slots=LM_SLOTS,
+            max_seq=LM_MAX_SEQ, policy="ws", seed=LM_SEED, device=dev,
+            tracer=tracer))
+    n_params = sum(p.numel() for p in params.parameters())
+    check(cfg.n_layers == 42 and n_params == cfg.param_count() + cfg.d_model,
+          f"{LM_ARCH}: {cfg.n_layers} layers, {n_params} parameters")
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for slot in engine.replicas[0].cache
+                      for t in slot.values())
+    rng = np.random.default_rng(LM_SEED)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in LM_PROMPTS]
+    requests = [Request(uid=i, prompt=p, max_new_tokens=LM_MAX_NEW)
+                for i, p in enumerate(prompts)]
+
+    flash_attention.LAUNCHES = 0
+    out = serve_mod.drain(engine, requests)
+    launches = flash_attention.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    check(not engine.failed, f"{len(engine.failed)} requests failed: "
+          f"{engine.failed[:2]}")
+    check(out["completed"] == len(prompts) and all(
+        len(c.tokens) == LM_MAX_NEW for c in engine.completed),
+          f"{out['completed']} completions, tokens "
+          f"{[len(c.tokens) for c in engine.completed]}")
+    check(launches == cfg.n_layers * len(prompts),
+          f"{launches} flash launches over the serve run, not "
+          f"{cfg.n_layers} x {len(prompts)}")
+    spans = tracer.span_summary()
+    admit_s = spans["engine.admit"]["total_us"] / 1e6
+    tick_s = spans["replica0.tick"]["total_us"] / 1e6
+    n_decode = out["tokens"] - len(prompts)
+
+    # each first token is the argmax of a separate prefill of its prompt;
+    # those prefills, on an idle card, time the first token
+    first = {c.uid: c.tokens[0] for c in engine.completed}
+    ttft = {}
+    for i, p in enumerate(prompts):
+        (logits, _), dt = _timed(lambda: model.prefill(
+            params, torch.as_tensor(p, device=dev)[None], max_seq=len(p)))
+        ttft[len(p)] = dt
+        check(int(torch.argmax(logits, -1)[0]) == first[i],
+              f"request {i} ({len(p)} tokens): first token {first[i]} != "
+              f"the argmax of its prefill")
+        if i == 0:
+            kernel_logits = logits[0].float()
+        del logits
+    plain = build_model(cfg, impl="torch")
+    (plain_logits, _), plain_s = _timed(lambda: plain.prefill(
+        params, torch.as_tensor(prompts[0], device=dev)[None],
+        max_seq=len(prompts[0])))
+    plain_logits = plain_logits[0].float()
+    diff = (kernel_logits - plain_logits)
+    abs_err = diff.abs().max().item()
+    rel_err = (diff.norm() / plain_logits.norm()).item()
+    same_top = int(kernel_logits.argmax()) == int(plain_logits.argmax())
+    check(rel_err <= LM_LOGIT_REL_TOL and abs_err <= LM_LOGIT_ABS_TOL,
+          f"{LM_PROMPTS[0]}-token prefill logits, kernel vs plain attention: "
+          f"relative L2 {rel_err:.3g} (limit {LM_LOGIT_REL_TOL}), max "
+          f"|diff| {abs_err:.3g} (limit {LM_LOGIT_ABS_TOL})")
+    n_prompt = sum(LM_PROMPTS)
+    info = dict(
+        arch=LM_ARCH, layers=cfg.n_layers, parameters=n_params,
+        weight_bytes=weight_bytes, cache_bytes=cache_bytes,
+        init_s=init_s, slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+        prompts=list(LM_PROMPTS), max_new_tokens=LM_MAX_NEW,
+        completed=out["completed"], tokens=out["tokens"],
+        serve_s=out["seconds"], tok_per_s=out["tok_per_s"],
+        admit_s=admit_s, prefill_tok_per_s_in_engine=n_prompt / admit_s,
+        decode_s=tick_s, decode_tokens=n_decode,
+        decode_tok_per_s=n_decode / tick_s,
+        ticks=engine.stats()["ticks"], flash_launches=launches,
+        ttft_s={str(k): v for k, v in ttft.items()},
+        prefill_tok_per_s=n_prompt / sum(ttft.values()),
+        plain_prefill_s=plain_s, logits_max_abs_diff=abs_err,
+        logits_rel_l2=rel_err, logits_same_argmax=same_top,
+        peak_bytes=peak, stats=engine.stats())
+    for n, t in ttft.items():
+        print(f"lm: time to first token, {n} tokens: {t * 1e3:.1f} ms")
+    print(f"lm: prefill {info['prefill_tok_per_s']:.1f} tokens/s (8 "
+          f"separate prefills); decode {info['decode_tok_per_s']:.2f} "
+          f"tokens/s over {n_decode} tokens in {tick_s:.3f} s of ticks; "
+          f"engine {out['tok_per_s']:.2f} tok/s ({out['tokens']} tokens in "
+          f"{out['seconds']:.3f} s); peak memory {peak / 1e9:.3f} GB "
+          f"(weights {weight_bytes / 1e9:.3f} GB, cache "
+          f"{cache_bytes / 1e9:.3f} GB); {launches} flash launches")
+    print(f"lm: {LM_PROMPTS[0]}-token logits kernel vs plain attention: "
+          f"max |diff| {abs_err:.4g}, relative L2 {rel_err:.4g}, same argmax "
+          f"{same_top}; plain prefill {plain_s:.3f} s")
+    print(json.dumps(info))
+    del engine, params, model, plain
+    torch.cuda.empty_cache()
+    return info
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -648,8 +938,23 @@ def main() -> int:
     times["serve_s"] = time.perf_counter() - t0
     infer_rec["launches"] = served["tree_infer_launches"]
 
+    del forest, syd
+    torch.cuda.empty_cache()
+
+    # ---- 7. the flash kernel against its plain version
+    t0 = time.perf_counter()
+    flash_rec = check_flash(gen, dev)
+    times["flash_s"] = time.perf_counter() - t0
+
+    # ---- 8. gemma2_9b serving at full width and depth
+    t0 = time.perf_counter()
+    lm = serve_lm(dev)
+    times["lm_serve_s"] = time.perf_counter() - t0
+    flash_rec["launches"] = lm["flash_launches"]
+
     print(json.dumps({"phase_seconds": times}))
-    print(json.dumps({"kernels": [hist_rec, gain_rec, infer_rec]}))
+    print(json.dumps({"kernels": [hist_rec, gain_rec, infer_rec,
+                                  flash_rec]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -31,6 +31,7 @@ import torch
 from repro_torch.core import cost_models, entropy
 from repro_torch.core.binning import BinnedDataset
 from repro_torch.core.config import GrowConfig
+from repro_torch.core.device import resolve_device
 from repro_torch.core.tree import Tree
 from repro_torch.kernels import compaction, histogram, ref, split_gain
 
@@ -309,15 +310,6 @@ def superstep(state: GrowState, x: torch.Tensor, y: torch.Tensor,
 # --------------------------------------------------------------------------
 # Full build
 # --------------------------------------------------------------------------
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card; asking for CUDA without one raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "the plain torch path on the CPU")
-    return dev
-
 
 def build(ds: BinnedDataset, cfg: GrowConfig = GrowConfig(), *,
           impl: str | None = None, device=None, collect_stats: bool = False,

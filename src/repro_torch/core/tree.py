@@ -23,6 +23,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch.core.device import resolve_device
+
 FIELDS = ("node_attr", "node_split_bin", "node_child0", "node_nchild",
           "node_class", "node_freq", "node_depth", "n_nodes")
 
@@ -39,7 +41,11 @@ class Tree:
     n_nodes: torch.Tensor
 
     @staticmethod
-    def empty(capacity: int, n_classes: int, device="cpu") -> "Tree":
+    def empty(capacity: int, n_classes: int, device=None) -> "Tree":
+        """An all-leaf tree of ``capacity`` nodes on ``device`` (None: the
+        card; raises without one)."""
+        device = resolve_device(device)
+
         def full(shape, value, dtype=torch.int32):
             return torch.full(shape, value, dtype=dtype, device=device)
         return Tree(

@@ -30,7 +30,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from repro_torch.core.frontier import resolve_device
+from repro_torch.core.device import resolve_device
 from repro_torch.core.tree import Tree, heavy_child_table
 from repro_torch.core.tree import predict as tree_predict
 from repro_torch.kernels import ref, tree_infer

@@ -36,7 +36,7 @@ import zlib
 
 import numpy as np
 
-from repro_torch.core.frontier import resolve_device
+from repro_torch.core.device import resolve_device
 from repro_torch.core.tree import Tree
 from repro_torch.infer.forest import FIELDS as _FIELDS
 from repro_torch.infer.forest import Forest, forest_from_numpy

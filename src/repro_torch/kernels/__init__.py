@@ -1,9 +1,11 @@
-"""Hand-written CUDA kernels: the splitAtt hot spot and forest inference.
+"""Hand-written CUDA kernels: the splitAtt hot spot, forest inference and
+the flash-attention forward of the LM prefill.
 
-:mod:`.histogram`, :mod:`.split_gain` and :mod:`.tree_infer` launch the
-kernels on CUDA tensors; :mod:`.ref` holds their plain versions, and
-:mod:`.ops` picks one of the two by the tensors' device (the frontier engine
-and the forest pick by their ``impl`` instead).
-:mod:`.autotune` sizes the tiles; :mod:`.compaction` feeds the histogram only
-the live cases; :mod:`._build` compiles ``csrc/*.cu`` with nvcc at first use.
+:mod:`.histogram`, :mod:`.split_gain`, :mod:`.tree_infer` and
+:mod:`.flash_attention` launch the kernels on CUDA tensors; :mod:`.ref`
+holds their plain versions, and :mod:`.ops` picks one of the two by the
+tensors' device (the frontier engine, the forest and the LM pick by their
+``impl`` instead).  :mod:`.autotune` sizes the tiles; :mod:`.compaction`
+feeds the histogram only the live cases; :mod:`._build` compiles
+``csrc/*.cu`` with nvcc at first use.
 """

@@ -17,14 +17,24 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-KERNELS = ("histogram", "split_gain", "tree_infer")
+KERNELS = ("histogram", "split_gain", "tree_infer", "flash_attention")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-# -fmad=false: no fused multiply-add contraction, so the split-gain kernel
-# rounds every product and sum as its torch specification does.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler",
               "-fPIC")
+# -fmad=false: no fused multiply-add contraction, so the split-gain kernel
+# rounds every product and sum as its torch specification does (and the
+# histogram and traversal kernels, built so since they were written).  The
+# flash kernel is two chains of dot products: it keeps the contraction,
+# which halves its instruction count, and is held to a tolerance.
+FMA_KERNELS = ("flash_attention",)
+
+
+def nvcc_flags(name: str) -> tuple[str, ...]:
+    if name in FMA_KERNELS:
+        return tuple(f for f in NVCC_FLAGS if f != "-fmad=false")
+    return NVCC_FLAGS
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -40,7 +50,8 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(
+        src + " ".join(nvcc_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -54,7 +65,8 @@ def build(names=KERNELS) -> dict[str, str]:
     for name in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *nvcc_flags(name), "-o", tmp,
+               str(CSRC / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))

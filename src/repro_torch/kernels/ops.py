@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import histogram, ref, tree_infer
 from repro_torch.kernels import split_gain as _split_gain
 
@@ -50,3 +51,11 @@ def forest_predict(node_tab, x_bins, attr_is_cont, *, max_depth: int,
                                          max_depth=max_depth, block_n=block_n)
     return ref.forest_predict_ref(node_tab, x_bins, attr_is_cont,
                                   max_depth=max_depth)
+
+
+def flash_attention(q, k, v, *, window: int = 0, softcap: float = 0.0
+                    ) -> torch.Tensor:
+    """(B, Sq, H, D) causal GQA attention: CUDA kernel or plain version."""
+    if _is_cuda(q):
+        return _flash.flash_attention(q, k, v, window=window, softcap=softcap)
+    return ref.flash_attention_ref(q, k, v, window=window, softcap=softcap)

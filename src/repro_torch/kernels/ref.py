@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import entropy
+from repro_torch.kernels.flash_attention import check_shapes, scale_query
 from repro_torch.kernels.tree_infer import (
     COL_ATTR, COL_CHILD0, COL_CLASS, COL_HEAVY, COL_NCHILD, COL_SPLIT)
 
@@ -67,3 +68,42 @@ def forest_predict_ref(node_tab: torch.Tensor, x_bins: torch.Tensor,
         nxt = col[COL_CHILD0].gather(1, node) + child
         node = torch.where(nchild == 0, node, nxt.long())
     return col[COL_CLASS].gather(1, node)
+
+
+#: The finite mask value of the JAX attention (never -inf: see the kernel).
+MASKED = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, window: int = 0, softcap: float = 0.0,
+                        q_chunk: int = 1024) -> torch.Tensor:
+    """(B, Sq, H, D) causal GQA attention, the function of the flash kernel:
+    q scaled in its dtype, logits in f32 (softcapped, masked with -1e30),
+    an exact softmax over each row's live keys, ``acc / max(l, 1e-30)`` in
+    q's dtype.  Rows go ``q_chunk`` at a time, and each chunk reads only
+    the keys its causal window can reach, so the logits stay small."""
+    check_shapes(q, k, v, window=window, softcap=softcap)
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    qf = scale_query(q).reshape(b, sq, kv, g, d).float()
+    kf, vf = k.float(), v.float()
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    for s0 in range(0, sq, q_chunk):
+        s1 = min(s0 + q_chunk, sq)
+        k0 = max(s0 - window + 1, 0) if window > 0 else 0
+        q_pos = torch.arange(s0, s1, device=q.device)
+        k_pos = torch.arange(k0, s1, device=q.device)
+        logits = torch.einsum("bqkgd,bskd->bkgqs", qf[:, s0:s1], kf[:, k0:s1])
+        if softcap > 0:
+            logits = torch.tanh(logits / softcap) * softcap
+        mask = q_pos[:, None] >= k_pos[None, :]
+        if window > 0:
+            mask &= q_pos[:, None] - k_pos[None, :] < window
+        logits = torch.where(mask, logits, MASKED)
+        p = torch.exp(logits - logits.amax(-1, keepdim=True))
+        acc = torch.einsum("bkgqs,bskd->bqkgd", p, vf[:, k0:s1])
+        l_sum = p.sum(-1).permute(0, 3, 1, 2)[..., None]
+        out[:, s0:s1] = (acc / torch.clamp_min(l_sum, 1e-30)).reshape(
+            b, s1 - s0, h, d).to(q.dtype)
+    return out

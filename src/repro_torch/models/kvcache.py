@@ -1,0 +1,142 @@
+"""Serving cache of global/local attention layers + the single-token decode
+step.
+
+The port of ``repro.models.kvcache`` for the block kinds the port has
+(``rwkv`` and ``rglru`` state raise).  Cache layout per layer
+(B = batch, S = max sequence):
+
+  global :  k, v   (B, S, KV, head_dim)
+  local  :  k, v   (B, min(window, S), KV, head_dim)  ring buffer, RoPE'd
+                   at write, slot ``pos % window``
+
+:func:`decode_step` writes the cache **in place** and returns the same
+list: the JAX step returns a new cache, which its ``jit`` (no donation)
+copies whole every tick (8.5 GB at gemma2_9b's full width, 4 slots,
+8,192 positions).  A row whose position is outside the cache is dropped,
+as the JAX scatters' ``mode="drop"`` does.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.device import resolve_device
+from repro_torch.kernels import ref
+from repro_torch.models import layers, transformer
+
+Cache = list[dict[str, torch.Tensor]]
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device=None) -> Cache:
+    """Zero caches for every layer on ``device`` (None: the card)."""
+    transformer.check_ported(cfg)
+    dev = resolve_device(device)
+    dt = layers.torch_dtype(cfg.dtype)
+    cache: Cache = []
+    for i in range(cfg.n_layers):
+        kind = cfg.block_kind(i)
+        s = max_seq if kind == "global" else min(cfg.window, max_seq)
+        shape = (batch, s, cfg.n_kv_heads, cfg.head_dim)
+        cache.append({"k": torch.zeros(shape, dtype=dt, device=dev),
+                      "v": torch.zeros(shape, dtype=dt, device=dev)})
+    return cache
+
+
+def prefill_to_cache(cfg: ModelConfig, entries: list[dict], cache: Cache,
+                     seq_len: int) -> Cache:
+    """Write ``forward(capture_cache=True)`` entries into ``cache`` (in
+    place; returns it)."""
+    for i, (entry, slot) in enumerate(zip(entries, cache)):
+        if cfg.block_kind(i) == "global":
+            n = entry["k"].shape[1]
+            slot["k"][:, :n] = entry["k"]
+            slot["v"][:, :n] = entry["v"]
+        else:
+            # the entry holds the last `window` tokens; place them so the
+            # ring index (pos % window) lines up with absolute positions
+            w = slot["k"].shape[1]
+            n = entry["k"].shape[1]
+            idx = torch.arange(seq_len - n, seq_len,
+                               device=slot["k"].device) % w
+            slot["k"][:, idx] = entry["k"].to(slot["k"].dtype)
+            slot["v"][:, idx] = entry["v"].to(slot["v"].dtype)
+    return cache
+
+
+def _write(buf: torch.Tensor, rows: torch.Tensor, idx: torch.Tensor,
+           val: torch.Tensor) -> None:
+    """``buf[rows, idx] = val`` for the rows whose idx lies in the buffer;
+    the others are dropped (they write back what their clamped index holds,
+    which needs no boolean indexing and so no wait for the device)."""
+    ok = (idx >= 0) & (idx < buf.shape[1])
+    at = idx.clamp(0, buf.shape[1] - 1)
+    keep = buf[rows, at]
+    buf[rows, at] = torch.where(ok[:, None, None], val.to(buf.dtype), keep)
+
+
+def _decode_attn_layer(layer: transformer.DecoderLayer, x: torch.Tensor,
+                       slot: dict, pos: torch.Tensor) -> torch.Tensor:
+    """pos: (B,) per-row position (continuous batching)."""
+    spec = layer.spec
+    b = x.shape[0]
+    rows = torch.arange(b, device=x.device)
+    q, k, v = layers.qkv(layer.attn, spec, x, pos[:, None])      # (B,1,·,·)
+    if layer.kind == "global":
+        _write(slot["k"], rows, pos, k[:, 0])
+        _write(slot["v"], rows, pos, v[:, 0])
+        o = layers.decode_attention(q, slot["k"], slot["v"], pos, spec=spec)
+    else:                                                        # local ring
+        w = slot["k"].shape[1]
+        ring = pos % w
+        _write(slot["k"], rows, ring, k[:, 0])
+        _write(slot["v"], rows, ring, v[:, 0])
+        # valid slots: the last min(pos+1, w) writes; RoPE is baked in at
+        # write time, so the order within the ring does not matter
+        valid = (torch.arange(w, device=x.device)[None, :]
+                 <= torch.clamp(pos, max=w - 1)[:, None])
+        o = _ring_attention(q, slot["k"], slot["v"], valid, spec)
+    return o.reshape(b, 1, -1) @ layer.attn["wo"]
+
+
+def _ring_attention(q, k_ring, v_ring, valid, spec):
+    """valid: (B, window) mask of live ring slots."""
+    b, _, h, d = q.shape
+    kv = k_ring.shape[2]
+    g = h // kv
+    # the JAX divisor is an f32 array: the division runs in f32
+    qg = q.reshape(b, kv, g, d).float() / math.sqrt(d)
+    logits = torch.einsum("bkgd,bskd->bkgs", qg, k_ring.float())
+    if spec.softcap > 0:
+        logits = torch.tanh(logits / spec.softcap) * spec.softcap
+    logits = torch.where(valid[:, None, None, :], logits, ref.MASKED)
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - m)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v_ring.float())
+    o = o / p.sum(-1)[..., None]
+    return o.reshape(b, 1, h, d).to(q.dtype)
+
+
+@torch.no_grad()
+def decode_step(params: transformer.Transformer, cfg: ModelConfig,
+                cache: Cache, token: torch.Tensor, pos):
+    """One serving step: token (B, 1) + cache at ``pos`` -> (logits (B, V),
+    cache).  ``pos`` is a scalar or (B,): each row advances at its own
+    position.  The cache is updated in place and returned."""
+    dev = params.device
+    token = torch.as_tensor(token, device=dev)
+    b = token.shape[0]
+    pos = torch.broadcast_to(torch.as_tensor(pos, device=dev).long(), (b,))
+    x = params.embed[token.long()]                              # (B, 1, D)
+    if cfg.pos == "sinusoidal":
+        x = x + layers.sinusoidal(pos, cfg.d_model)[:, None].to(x.dtype)
+    for layer, slot in zip(params.layers, cache):
+        h = layers.norm_apply(layer.norm1, x, cfg.norm)
+        x = x + _decode_attn_layer(layer, h, slot, pos)
+        y = layers.norm_apply(layer.norm2, x, cfg.norm)
+        x = x + layers.mlp_apply(layer.mlp, y, cfg.act)
+    x = layers.norm_apply(params.final_norm, x, cfg.norm)
+    return params.unembed(x)[:, 0], cache

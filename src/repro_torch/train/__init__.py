@@ -1,2 +1,2 @@
-"""Training substrate.  Only the checkpoint directory GC that the model
-registry shares is ported so far."""
+"""Training substrate.  Ported so far: the checkpoint directory GC that the
+model registry shares, and the heartbeat monitor the serving engine uses."""

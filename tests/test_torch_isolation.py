@@ -90,3 +90,28 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                               torch.zeros(2, dtype=torch.bool),
                               torch.ones(2, dtype=torch.int32))
     assert histogram.LAUNCHES == 0 and split_gain.LAUNCHES == 0
+
+
+def test_tree_and_lm_constructors_without_device_need_cuda():
+    """Every public constructor defaults to the card: Tree.empty, the LM's
+    init and params_from_jax, the serving Replica and launch.serve."""
+    from repro_torch.configs import base
+    from repro_torch.core.tree import Tree
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    cfg = base.reduced(base.get_config("yi_6b"), dtype="float32")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Tree.empty(4, 2)
+    assert Tree.empty(4, 2, device="cpu").node_attr.device.type == "cpu"
+    model = build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.init()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.init_cache(1, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        transformer.params_from_jax({}, cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.serve("yi_6b", n_requests=1)

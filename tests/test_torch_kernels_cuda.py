@@ -9,7 +9,8 @@ Histogram: exact for integral weights, atol 1e-4 / rtol 1e-5 for random f32
 weights (device atomics add in no fixed order).  Split gain: bins and the
 -inf pattern exact, scores within 1e-5 * (1 + |score|) (the discrete branch
 sums its bins in another order than torch.sum).  Forest traversal: labels
-exact.
+exact.  Flash attention: f32 atol 3e-5, bf16 atol 2e-2 (another summation
+order; one bf16 rounding step of outputs near 1).
 """
 
 import numpy as np
@@ -145,3 +146,66 @@ def test_forest_predict_cuda_equals_torch_on_the_card(dev):
     assert torch.equal(got, F.predict(fo, x, ds.attr_is_cont, impl="torch"))
     assert torch.equal(F.predict_per_tree(fo, x, ds.attr_is_cont),
                        F.predict_per_tree(fo, x, ds.attr_is_cont, impl="ref"))
+
+
+# (B, S, H, KV, D, window, softcap, dtype): the six cases of the JAX
+# package's tests/test_kernels.py, then gemma2's and yi's head dims at
+# ragged lengths (one tile, one row past it, a lone row, many tiles)
+FLASH_CASES = [
+    (2, 24, 4, 2, 16, 0, 0.0, "float32"),
+    (1, 33, 4, 4, 8, 0, 0.0, "float32"),
+    (2, 24, 4, 2, 16, 7, 0.0, "float32"),
+    (2, 24, 4, 2, 16, 0, 30.0, "float32"),
+    (2, 40, 6, 2, 32, 9, 50.0, "float32"),
+    (2, 32, 4, 2, 16, 0, 0.0, "bfloat16"),
+] + [(1, s, 4, 2, d, w, 50.0, dt)
+     for d in (128, 256) for s in (1, 63, 65, 1000)
+     for w, dt in ((0, "float32"), (100, "bfloat16"))]
+# f32: another summation order than the plain version's matmuls (which run
+# in full f32: TF32 is off); bf16: one rounding step of outputs near 1
+FLASH_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(dev, case):
+    from repro_torch.kernels import flash_attention, ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s, h, kv, d, window, cap, dtype = case
+    rng = np.random.default_rng(b * s + d)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.as_tensor(rng.normal(0, 1, shape).astype(np.float32),
+                               device=dev).to(dt)
+               for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
+    before = flash_attention.LAUNCHES
+    got = flash_attention.flash_attention(q, k, v, window=window,
+                                          softcap=cap)
+    want = ref.flash_attention_ref(q, k, v, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_TOL[dtype], rtol=0)
+
+
+def test_lm_prefill_cuda_equals_torch_on_the_card(dev):
+    """Reduced gemma2 (window 64, softcaps) in f32: prefill through the
+    kernel equals prefill through the plain attention on the card."""
+    from repro_torch.configs import base
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models.model import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = base.reduced(base.get_config("gemma2_9b"), dtype="float32")
+    gen = torch.Generator(dev).manual_seed(0)
+    params = build_model(cfg).init(gen)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (2, 100)), device=dev)
+    before = flash_attention.LAUNCHES
+    got, cache = build_model(cfg).prefill(params, tokens, max_seq=128)
+    assert flash_attention.LAUNCHES == before + cfg.n_layers
+    want, cache_t = build_model(cfg, impl="torch").prefill(params, tokens,
+                                                           max_seq=128)
+    assert flash_attention.LAUNCHES == before + cfg.n_layers
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    for a, b in zip(cache, cache_t):
+        torch.testing.assert_close(a["k"], b["k"], atol=1e-4, rtol=0)

@@ -72,7 +72,7 @@ def test_round_trip_and_properties(rng):
     assert (t.size, t.depth, t.n_leaves) == (jtree.size, jtree.depth,
                                              jtree.n_leaves)
     assert t.pretty() == jtree.pretty()
-    empty = tt.Tree.empty(8, 3)
+    empty = tt.Tree.empty(8, 3, device="cpu")
     jempty = jt.Tree.empty(8, 3)
     for f in tt.FIELDS:
         np.testing.assert_array_equal(getattr(empty.to_numpy(), f),
@@ -142,7 +142,7 @@ def test_deep_tree_default_depth():
     for depth in (None, 10):
         assert int(tt.predict(t, x, cont, max_depth=depth)[0]) == int(
             np.asarray(jt.predict(jtree, x, cont, max_depth=depth))[0])
-    empty = tt.Tree.empty(4, 2)
+    empty = tt.Tree.empty(4, 2, device="cpu")
     np.testing.assert_array_equal(
         tt.predict(empty, np.zeros((3, 1), np.int32), cont).numpy(),
         np.zeros(3))
