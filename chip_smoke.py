@@ -31,22 +31,27 @@ Phases (each one that fails ends the run with a non-zero exit):
      label must equal one batched predict of the same rows, the traversal
      kernel must have served every batch, and the published arrays' crc32
      must equal the in-memory forest's.
-  7. flash attention: the flash kernel against its plain version on the
-     card at the six FLASH_CASES of the JAX package's tests, at D = 128 and
-     256 with ragged S (1, 63, 65, 1000), and at full gemma2_9b layer
+  7. flash attention: the flash kernels (bf16: the tensor-core wgmma/TMA
+     kernel, f32: the scalar one) against their plain version on the card
+     at the six FLASH_CASES of the JAX package's tests, at D = 128 and 256
+     with ragged S (1, 63, 65, 1000), at B = 2 with ragged S (63, 129,
+     1,000) and D = 64, 128, 256 in bf16, and at full gemma2_9b layer
      shapes (B = 1, S = 7,000, H = 16, KV = 8, D = 256; window 4,096 and 0,
-     softcap 50) in bf16 and f32; times the kernel, the plain version and
-     torch's scaled_dot_product_attention (the library yardstick, never
-     called by the port) at S = 7,000 with window 0 and softcap 0.
+     softcap 50) in bf16 and f32; times the bf16 kernel and the plain
+     version at the three gemma2 layer settings, beside the earlier scalar
+     bf16 kernel's times (quoted from PERF.md, not re-run), and torch's
+     scaled_dot_product_attention (the library yardstick, never called by
+     the port) at S = 7,000 with window 0 and softcap 0.
   8. LM serving: gemma2_9b at full width and depth (42 layers, 10.16B
      parameters, bf16, random weights from seed 0) through
      repro_torch.launch.serve's engine: one replica, 4 slots, max_seq
      8,192, policy ws, greedy, 32 new tokens for each of 8 prompts of
      7,000 / 5,121 / 4,096 / 3,000 / 1,537 / 777 / 256 / 33 tokens.  All 8
      must complete with 32 tokens and no failure, through exactly 42 x 8
-     flash launches; each first token must equal the argmax of a separate
-     prefill of its prompt, and the 7,000-token prefill's logits with the
-     kernel must agree with those through the plain attention.
+     flash launches, all of the bf16 tensor-core kernel; each first token
+     must equal the argmax of a separate prefill of its prompt, and the
+     7,000-token prefill's logits with the kernel must agree with those
+     through the plain attention.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  It imports nothing of JAX or of the JAX
@@ -105,14 +110,22 @@ FLASH_CASES = [
     (2, 32, 4, 2, 16, 0, 0.0, "bfloat16"),
 ] + [(1, s, 16, 8, d, w, 50.0, dt) for d in (128, 256)
      for s in (1, 63, 65, 1000) for w in (0, 100)
-     for dt in ("float32", "bfloat16")]
+     for dt in ("float32", "bfloat16")] + [
+    # the tensor map's batch edge (B = 2, ragged S) at one to four 64-column
+    # boxes, with and without window and softcap
+    (2, s, 16, 8, d, w, cap, "bfloat16") for d in (64, 128, 256)
+    for s in (63, 129, 1000) for w, cap in ((0, 0.0), (100, 50.0))]
 FLASH_S = 7_000
 GEMMA_LAYER = dict(H=16, KV=8, D=256)
 FLASH_FULL = [(1, FLASH_S, 16, 8, 256, w, 50.0, dt)
               for w in (4096, 0) for dt in ("bfloat16", "float32")]
+# The earlier scalar bf16 kernel's times at the three gemma2 layer settings
+# (window, softcap), as PERF.md records them: printed beside the
+# tensor-core kernel's, not re-run.
+FLASH_SCALAR_MS = {(0, 0.0): 21.616, (0, 50.0): 22.59, (4096, 50.0): 18.16}
 # Kernel against plain: f32 differs by summation order only (the plain
 # version's matmuls run in full f32: TF32 off); bf16 by one rounding step of
-# an output near 1.
+# an output near 1 (the tensor-core kernel also rounds P to bf16).
 FLASH_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 
 # Phase 8: gemma2_9b serving at full width and depth.
@@ -416,6 +429,33 @@ def _with_unknowns(x, gen):
     return x
 
 
+def visited_rows(fo, leaves) -> int:
+    """Distinct (tree, node) table rows on the paths from each tree's root
+    to the (T, N) leaf nodes ``leaves``: the leaves and their ancestors."""
+    import torch
+    t_dim, m_dim = fo.n_trees, fo.capacity
+    dev = leaves.device
+    row = torch.arange(t_dim * m_dim, device=dev)
+    live = row % m_dim < fo.n_nodes.long().repeat_interleave(m_dim)
+    nchild = torch.where(live, fo.node_nchild.reshape(-1).long(), 0)
+    nchild = nchild.clamp_min(0)
+    # parent[r]: the flat row of r's parent (-1 at roots and dead rows)
+    node = row.repeat_interleave(nchild)
+    rank = (torch.arange(node.numel(), device=dev)
+            - (torch.cumsum(nchild, 0) - nchild).repeat_interleave(nchild))
+    child = (node // m_dim * m_dim + rank
+             + fo.node_child0.reshape(-1).long().repeat_interleave(nchild))
+    parent = torch.full((t_dim * m_dim,), -1, dtype=torch.int64, device=dev)
+    parent[child] = node
+    seen = torch.zeros(t_dim * m_dim, dtype=torch.bool, device=dev)
+    seen[(leaves.long() + torch.arange(t_dim, device=dev)[:, None] * m_dim)
+         .reshape(-1)] = True
+    for _ in range(fo.n_levels):
+        up = parent[seen]
+        seen[up[up >= 0]] = True
+    return int(seen.sum())
+
+
 def _infer_case(fo, x, cont, what: str) -> None:
     """Kernel labels == plain labels, exactly."""
     import torch
@@ -489,8 +529,11 @@ def check_forest(syd, census, cfg, gen, dev) -> tuple[dict, object, dict]:
         tab, x, cont, max_depth=depth), reps=5)
     plain_ms = cuda_ms(lambda: ref.forest_predict_ref(
         tab, x, cont, max_depth=depth), reps=2, warmup=1)
+    batch = x[:SERVE_MAX_BATCH].contiguous()   # as phase 6 serves them
     ms_batch = cuda_ms(lambda: tree_infer.forest_predict(
-        tab, x[:SERVE_MAX_BATCH], cont, max_depth=depth), reps=50)
+        tab, batch, cont, max_depth=depth), reps=50)
+    plain_batch_ms = cuda_ms(lambda: ref.forest_predict_ref(
+        tab, batch, cont, max_depth=depth), reps=10)
     F.predict(fo, syd.x, syd.attr_is_cont)
     torch.cuda.synchronize()
     tree_infer.LAUNCHES = 0
@@ -502,33 +545,54 @@ def check_forest(syd, census, cfg, gen, dev) -> tuple[dict, object, dict]:
     check(predict_launches == 1,
           f"predict() launched the traversal kernel {predict_launches} times")
     acc = float((labels.cpu().numpy() == syd.y).mean())
-    # bytes: the rows, every table and the labels once each; operations:
-    # the descent steps this data takes (the depth of each (tree, case)'s
-    # leaf, read through the plain version with depths in the class
-    # column) times 6 integer operations a step (leaf test, unknown test,
-    # threshold test, two clip bounds, child add) at the scalar peak
+    # bytes: the rows, the distinct table rows they visit and the labels
+    # once each; operations: the descent steps this data takes (the depth
+    # of each (tree, case)'s leaf, read through the plain version with
+    # depths in the class column) times 6 integer operations a step (leaf
+    # test, unknown test, threshold test, two clip bounds, child add) at
+    # the scalar peak
     depth_tab = tab.clone()
     depth_tab[..., tree_infer.COL_CLASS] = fo.node_depth
-    steps = int(ref.forest_predict_ref(depth_tab, x, cont, max_depth=depth)
-                .sum(dtype=torch.int64))
-    del depth_tab
-    n_bytes = n * a_dim * 4 + t_dim * m_dim * 32 + t_dim * n * 4
-    bound_ms, bound_by = bound(n_bytes, 6 * steps)
+    leaf_tab = tab.clone()
+    leaf_tab[..., tree_infer.COL_CLASS] = torch.arange(
+        m_dim, dtype=torch.int32, device=dev)
+
+    def traversal_bound(rows):
+        steps = int(ref.forest_predict_ref(depth_tab, rows, cont,
+                                           max_depth=depth)
+                    .sum(dtype=torch.int64))
+        leaves = ref.forest_predict_ref(leaf_tab, rows, cont,
+                                        max_depth=depth)
+        n = rows.shape[0]
+        table = visited_rows(fo, leaves) * 32
+        n_bytes = n * a_dim * 4 + table + t_dim * n * 4
+        return steps, n_bytes, bound(n_bytes, 6 * steps)
+
+    steps, n_bytes, (full_bound_ms, full_bound_by) = traversal_bound(x)
+    _, _, (bound_ms, bound_by) = traversal_bound(batch)
+    del depth_tab, leaf_tab
     bytes_ms, ops_ms = bound(n_bytes, 0)[0], bound(0, 6 * steps)[0]
     print(f"forest_predict: T={t_dim} M={m_dim} N={n} A={a_dim} "
           f"depth={depth} {ms:.4f} ms (plain {plain_ms:.4f}, bound "
-          f"{bound_ms:.4f} by {bound_by}: bytes {bytes_ms:.4f}, "
-          f"operations {ops_ms:.4f}); N={SERVE_MAX_BATCH} "
-          f"{ms_batch:.4f} ms; predict() {predict_s * 1e3:.3f} ms, "
-          f"{predict_launches} launch")
+          f"{full_bound_ms:.4f} by {full_bound_by}: bytes {bytes_ms:.4f}, "
+          f"operations {ops_ms:.4f}); the serving batch N="
+          f"{SERVE_MAX_BATCH}: {ms_batch:.4f} ms (plain {plain_batch_ms:.4f}"
+          f", bound {bound_ms:.5f} by {bound_by}); predict() "
+          f"{predict_s * 1e3:.3f} ms, {predict_launches} launch")
+    # the record's times and bound are those of one serving batch, the
+    # shape of every launch that the serving run (phase 6) counts
     record = dict(
         name="forest_predict", route="cuda",
         source="src/repro_torch/kernels/csrc/tree_infer.cu",
         replaces="src/repro/kernels/tree_infer.py:103",
         jax="repro.kernels.tree_infer.forest_predict",
-        max_abs_err=0, ms=ms, kernel_ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-        shape=dict(T=t_dim, M=m_dim, N=n, A=a_dim, depth=depth))
+        max_abs_err=0, ms=ms_batch, kernel_ms=ms_batch,
+        plain_ms=plain_batch_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None,
+        shape=dict(T=t_dim, M=m_dim, N=SERVE_MAX_BATCH, A=a_dim,
+                   depth=depth),
+        full_shape=dict(N=n, ms=ms, plain_ms=plain_ms,
+                        bound_ms=full_bound_ms, bound_by=full_bound_by))
     info = dict(forest_trees=t_dim, capacity=m_dim, n_levels=depth,
                 descent_steps=steps,
                 tree_nodes=[t.size for t in trees], grow_s=grow_s,
@@ -703,7 +767,8 @@ def check_flash(gen, dev) -> dict:
     for (window, cap), (t, pt, bd, by) in times.items():
         print(f"flash_attention: S={FLASH_S} H={h} KV={kv} D={d} bf16 "
               f"window={window} softcap={cap}: {t:.4f} ms (plain {pt:.4f}, "
-              f"bound {bd:.4f} by {by}, {t / bd:.1f}x)")
+              f"bound {bd:.4f} by {by}, {t / bd:.2f}x; earlier scalar "
+              f"kernel {FLASH_SCALAR_MS[(window, cap)]} ms)")
     print(f"flash_attention: scaled_dot_product_attention {library_ms:.4f} "
           f"ms at window 0, softcap 0 (max |diff| {lib_err:.3g}); max "
           f"|kernel - plain| f32 {max_err['float32']:.3g}, bf16 "
@@ -773,8 +838,10 @@ def serve_lm(dev) -> dict:
                 for i, p in enumerate(prompts)]
 
     flash_attention.LAUNCHES = 0
+    flash_attention.LAUNCHES_BY_DTYPE.update(bfloat16=0, float32=0)
     out = serve_mod.drain(engine, requests)
     launches = flash_attention.LAUNCHES
+    by_dtype = dict(flash_attention.LAUNCHES_BY_DTYPE)
     peak = torch.cuda.max_memory_allocated()
     check(not engine.failed, f"{len(engine.failed)} requests failed: "
           f"{engine.failed[:2]}")
@@ -785,6 +852,9 @@ def serve_lm(dev) -> dict:
     check(launches == cfg.n_layers * len(prompts),
           f"{launches} flash launches over the serve run, not "
           f"{cfg.n_layers} x {len(prompts)}")
+    check(by_dtype == {"bfloat16": launches, "float32": 0},
+          f"flash launches by dtype {by_dtype}: the bf16 serving path must "
+          f"go through the tensor-core kernel only")
     spans = tracer.span_summary()
     admit_s = spans["engine.admit"]["total_us"] / 1e6
     tick_s = spans["replica0.tick"]["total_us"] / 1e6
@@ -829,6 +899,7 @@ def serve_lm(dev) -> dict:
         decode_s=tick_s, decode_tokens=n_decode,
         decode_tok_per_s=n_decode / tick_s,
         ticks=engine.stats()["ticks"], flash_launches=launches,
+        flash_launches_by_dtype=by_dtype,
         ttft_s={str(k): v for k, v in ttft.items()},
         prefill_tok_per_s=n_prompt / sum(ttft.values()),
         plain_prefill_s=plain_s, logits_max_abs_diff=abs_err,

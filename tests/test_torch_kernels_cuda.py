@@ -9,9 +9,12 @@ Histogram: exact for integral weights, atol 1e-4 / rtol 1e-5 for random f32
 weights (device atomics add in no fixed order).  Split gain: bins and the
 -inf pattern exact, scores within 1e-5 * (1 + |score|) (the discrete branch
 sums its bins in another order than torch.sum).  Forest traversal: labels
-exact.  Flash attention: f32 atol 3e-5, bf16 atol 2e-2 (another summation
-order; one bf16 rounding step of outputs near 1).
+exact.  Flash attention (bf16: the tensor-core kernel, f32: the scalar one):
+f32 atol 3e-5, bf16 atol 2e-2 (another summation order, P rounded to bf16
+before P . V; one bf16 rounding step of outputs near 1).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -186,6 +189,76 @@ def test_flash_attention_kernel_matches_plain(dev, case):
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(),
                                atol=FLASH_TOL[dtype], rtol=0)
+
+
+def _flash_inputs(dev, b, s, h, kv, d, dt, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.normal(0, 1, shape).astype(np.float32),
+                            device=dev).to(dt)
+            for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d))]
+
+
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128, 192, 256])
+@pytest.mark.parametrize("s", [1, 63, 65, 127, 129, 1000])
+@pytest.mark.parametrize("b", [1, 2])
+def test_flash_tensor_core_kernel_matches_plain(dev, b, s, d, window,
+                                                softcap):
+    """The bf16 wgmma kernel: ragged S on both sides of the 64-key and
+    128-query tiles, B = 2 (the tensor map's batch edge), D below one
+    64-column box, across a partly filled one, and up to four of them."""
+    from repro_torch.kernels import flash_attention, ref
+    q, k, v = _flash_inputs(dev, b, s, 4, 2, d, torch.bfloat16, b * s + d)
+    before = dict(flash_attention.LAUNCHES_BY_DTYPE)
+    got = flash_attention.flash_attention(q, k, v, window=window,
+                                          softcap=softcap)
+    want = ref.flash_attention_ref(q, k, v, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES_BY_DTYPE == {
+        "bfloat16": before["bfloat16"] + 1, "float32": before["float32"]}
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_TOL["bfloat16"], rtol=0)
+
+
+def test_flash_routes_each_dtype_to_its_kernel(dev):
+    """bf16 launches the tensor-core kernel, f32 the scalar one; both count
+    in LAUNCHES, each in its own LAUNCHES_BY_DTYPE entry."""
+    from repro_torch.kernels import flash_attention, ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for dt, name in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        q, k, v = _flash_inputs(dev, 2, 129, 4, 2, 128, dt, 7)
+        total = flash_attention.LAUNCHES
+        before = dict(flash_attention.LAUNCHES_BY_DTYPE)
+        got = flash_attention.flash_attention(q, k, v, window=100,
+                                              softcap=50.0)
+        torch.cuda.synchronize()
+        assert flash_attention.LAUNCHES == total + 1
+        want = {n: c + (n == name) for n, c in before.items()}
+        assert flash_attention.LAUNCHES_BY_DTYPE == want
+        torch.testing.assert_close(
+            got.float(), ref.flash_attention_ref(
+                q, k, v, window=100, softcap=50.0).float(),
+            atol=FLASH_TOL[name], rtol=0)
+
+
+def test_flash_bf16_launch_failure_raises(dev):
+    """A geometry the bf16 kernel was not built for is refused by the
+    launch, and the wrapper raises: nothing falls back."""
+    from repro_torch.kernels import flash_attention
+    q, k, v = _flash_inputs(dev, 1, 64, 2, 1, 64, torch.bfloat16, 3)
+    real = flash_attention.tma_geometry
+    flash_attention.tma_geometry = lambda *a: dataclasses.replace(
+        real(*a), smem_bytes=real(*a).smem_bytes - 16)
+    try:
+        before = flash_attention.LAUNCHES
+        with pytest.raises(RuntimeError, match="launch failed"):
+            flash_attention.flash_attention(q, k, v)
+        assert flash_attention.LAUNCHES == before
+    finally:
+        flash_attention.tma_geometry = real
 
 
 def test_lm_prefill_cuda_equals_torch_on_the_card(dev):
