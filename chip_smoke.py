@@ -10,7 +10,11 @@ Phases (each one that fails ends the run with a non-zero exit):
      nvcc (sm_90a) into build/kernels/ and prints the build time.
   2. kernels: each kernel's wrapper against its plain torch version on the
      card, at the shapes of the SyD10M9A build and at edge shapes; times the
-     kernel, the plain version and the library call.
+     kernel, the plain version and the library call.  The histogram also in
+     each regime of its plan (every case in one slot, 20% live over 256
+     slots compacted, census_pums' shape in one slot and over 256, K = 1,
+     N = 1), each timed beside its bound with the plan it took; split gain
+     timed by the profiler (its kernel alone).
   3. SyD10M9A at full size (10,000,000 cases, 9 attributes, 256 bins) grown
      with the defaults (the CUDA kernels) and collect_stats=True; both
      kernels must have been launched by that build.  Then one timed build
@@ -175,6 +179,24 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_ms(fn, key: str, reps: int) -> float:
+    """Mean device time of the kernels named ``key`` in one call of ``fn``
+    (torch.profiler, device activity only): the kernel alone, where CUDA
+    events around back-to-back calls of a small kernel time the host."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and key in e.key
+               ) / 1e3 / reps
+
+
 def bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S
           ) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -204,18 +226,23 @@ def _hist_inputs(gen, n, a, b, c, k, *, live, unknown, integral, dev):
 
 
 def check_histogram(ds_x, ds_y, ds_w, n_bins, n_classes, k, gen, dev):
-    """Histogram kernel vs its plain version.  Returns (record, inputs for
-    the split-gain check)."""
+    """Histogram kernel vs its plain version, in every regime of its plan.
+    Returns (record, inputs for the split-gain check)."""
     import torch
-    from repro_torch.kernels import compaction, histogram, ref
+    from repro_torch.kernels import autotune, compaction, histogram, ref
     kw = dict(n_slots=k, n_bins=n_bins, n_classes=n_classes)
     n, a_dim = ds_x.shape
 
-    # the main path's root superstep: every case live in slot 0
+    # the main path's root superstep: every case live in slot 0 (SyD's
+    # discrete columns have 5, 9 and 20 values), with and without the
+    # build's live-slot hint
     root_slot = torch.zeros((n,), dtype=torch.int32, device=dev)
-    got = histogram.frontier_histogram(ds_x, ds_y, ds_w, root_slot, **kw)
     want = ref.frontier_histogram_ref(ds_x, ds_y, ds_w, root_slot, **kw)
-    check(torch.equal(got, want), "histogram != plain at the root shape")
+    for hint in (1, None):
+        got = histogram.frontier_histogram(ds_x, ds_y, ds_w, root_slot,
+                                           n_live_slots=hint, **kw)
+        check(torch.equal(got, want),
+              f"histogram != plain at the root shape (hint {hint})")
     max_err = 0.0
 
     # a deep superstep: 20% of the cases live over all K slots, gathered by
@@ -223,12 +250,13 @@ def check_histogram(ds_x, ds_y, ds_w, n_bins, n_classes, k, gen, dev):
     live_slot = torch.randint(0, k, (n,), generator=gen, device=dev,
                               dtype=torch.int32)
     live_slot[torch.rand((n,), generator=gen, device=dev) >= 0.2] = -1
-    got = histogram.frontier_histogram(
-        *compaction.live_cases(ds_x, ds_y, ds_w, live_slot), **kw)
+    live = compaction.live_cases(ds_x, ds_y, ds_w, live_slot)
+    got = histogram.frontier_histogram(*live, n_live_slots=k, **kw)
     sub_hist = ref.frontier_histogram_ref(ds_x, ds_y, ds_w, live_slot, **kw)
     check(torch.equal(got, sub_hist), "compacted histogram != plain")
 
-    # edge shapes: unknown bins, slot -1, B off any tile, C = 23, wide A
+    # edge shapes: unknown bins, slot -1, B off any tile, C = 23, wide A;
+    # each under the planner's choice and both plans pinned
     edges = [(100_003, 5, 13, 23, 37), (50_000, 40, 128, 2, 256),
              (4_099, 3, 300, 3, 5), (1, 2, 1, 2, 1)]
     for (en, ea, eb, ec, ek) in edges:
@@ -237,38 +265,77 @@ def check_histogram(ds_x, ds_y, ds_w, n_bins, n_classes, k, gen, dev):
                                       unknown=0.1, integral=integral,
                                       dev=dev)
             ekw = dict(n_slots=ek, n_bins=eb, n_classes=ec)
-            got = histogram.frontier_histogram(x, y, w, s, **ekw)
             want = ref.frontier_histogram_ref(x, y, w, s, **ekw)
-            if integral:
-                check(torch.equal(got, want),
-                      f"histogram != plain at {(en, ea, eb, ec, ek)}")
-            else:
-                # non-integral weights: atomics add in no fixed order
-                check(torch.allclose(got, want, rtol=1e-5, atol=1e-4),
-                      f"histogram !~ plain at {(en, ea, eb, ec, ek)}")
-                max_err = max(max_err, (got - want).abs().max().item())
+            for pin in ({}, dict(block_k=0), dict(block_k=1)):
+                got = histogram.frontier_histogram(x, y, w, s, **ekw, **pin)
+                if integral:
+                    check(torch.equal(got, want), f"histogram != plain at "
+                          f"{(en, ea, eb, ec, ek)} {pin}")
+                else:
+                    # non-integral weights: atomics add in no fixed order
+                    check(torch.allclose(got, want, rtol=1e-5, atol=1e-4),
+                          f"histogram !~ plain at {(en, ea, eb, ec, ek)} "
+                          f"{pin}")
+                    max_err = max(max_err, (got - want).abs().max().item())
 
-    # timing at the root shape (10M live cases)
+    # the regimes of the plan, each against the plain version, its kernel
+    # timed (profiler) beside its bound: (name, inputs, K, live-slot hint)
+    census = _hist_inputs(gen, 299_285, 40, 128, 2, 256, live=1.0,
+                          unknown=0.0, integral=True, dev=dev)
+    census_root = torch.zeros_like(census[3])
+    m = 1_000_000
+    regimes = [
+        ("root: all N in slot 0", (ds_x, ds_y, ds_w, root_slot), k, 1),
+        ("20% live over 256 slots, compacted", live, k, k),
+        ("census A=40 B=128: all in slot 0",
+         (*census[:3], census_root), 256, 1),
+        ("census A=40 B=128: over 256 slots", census, 256, 256),
+        ("K=1: 1M cases", (ds_x[:m], ds_y[:m], ds_w[:m], root_slot[:m]),
+         1, 1),
+        ("n=1", (ds_x[:1], ds_y[:1], ds_w[:1], root_slot[:1]), k, 1),
+    ]
+    timed = []
+    for name, (x, y, w, s), rk, hint in regimes:
+        b = 128 if x.shape[1] == 40 else n_bins
+        rkw = dict(n_slots=rk, n_bins=b, n_classes=n_classes)
+        got = histogram.frontier_histogram(x, y, w, s, n_live_slots=hint,
+                                           **rkw)
+        check(torch.equal(got, ref.frontier_histogram_ref(x, y, w, s, **rkw)),
+              f"histogram != plain in regime {name!r}")
+        plan = autotune.plan_histogram(
+            n_cases=x.shape[0], n_attrs=x.shape[1], n_live_slots=hint, **rkw)
+        r_ms = kernel_ms(lambda: histogram.frontier_histogram(
+            x, y, w, s, n_live_slots=hint, **rkw),
+                         "frontier_histogram_kernel", reps=10)
+        # the kernel's own work: each case row (A bins, label, weight,
+        # slot) read once, each non-zero cell written once
+        r_bound, r_by = bound(x.shape[0] * (4 * x.shape[1] + 12)
+                              + int(torch.count_nonzero(got)) * 4,
+                              x.shape[0] * x.shape[1])
+        timed.append(dict(regime=name, N=x.shape[0], A=x.shape[1], K=rk,
+                          plan=plan.mode,
+                          ms=r_ms, bound_ms=r_bound, bound_by=r_by))
+        print(f"histogram regime {name}: N={x.shape[0]} A={x.shape[1]} "
+              f"K={rk} plan {plan.mode}: {r_ms:.4f} ms (bound "
+              f"{r_bound:.5f} by {r_by}, {r_ms / r_bound:.1f}x)")
+    del census, census_root
+
+    # the record: the root shape (10M live cases), the wrapper with its
+    # zero fill, the plain version and index_add_ on the same inputs
     ms = cuda_ms(lambda: histogram.frontier_histogram(
-        ds_x, ds_y, ds_w, root_slot, **kw), reps=10)
+        ds_x, ds_y, ds_w, root_slot, n_live_slots=1, **kw), reps=10)
     plain_ms = cuda_ms(lambda: ref.frontier_histogram_ref(
         ds_x, ds_y, ds_w, root_slot, **kw), reps=3)
-    flat = (((root_slot.long()[:, None] * a_dim
-              + torch.arange(a_dim, device=dev)[None, :]) * (n_bins + 1)
-             + torch.where(ds_x >= 0, ds_x, n_bins).long()) * n_classes
-            + ds_y.long()[:, None]).reshape(-1)
-    w_flat = ds_w[:, None].expand(n, a_dim).reshape(-1)
+    flat, w_flat = ref.histogram_scatter(ds_x, ds_y, ds_w, root_slot, **kw)
     lib_out = torch.zeros(((k + 1) * a_dim * (n_bins + 1) * n_classes,),
                           device=dev)
     library_ms = cuda_ms(lambda: lib_out.index_add_(0, flat, w_flat), reps=3)
     del flat, w_flat, lib_out
     out_bytes = k * a_dim * (n_bins + 1) * n_classes * 4
     bound_ms, bound_by = bound(n * (4 * a_dim + 12) + out_bytes, n * a_dim)
-    sub_ms = cuda_ms(lambda: histogram.frontier_histogram(
-        *compaction.live_cases(ds_x, ds_y, ds_w, live_slot), **kw), reps=5)
-    print(f"histogram: root N={n} {ms:.4f} ms (plain {plain_ms:.4f}, "
-          f"index_add_ {library_ms:.4f}, bound {bound_ms:.4f} by {bound_by}); "
-          f"20%-live compacted {sub_ms:.4f} ms")
+    print(f"histogram: root N={n} {ms:.4f} ms with the zero fill (plain "
+          f"{plain_ms:.4f}, index_add_ {library_ms:.4f}, bound {bound_ms:.4f}"
+          f" by {bound_by})")
     record = dict(
         name="frontier_histogram", route="cuda",
         source="src/repro_torch/kernels/csrc/histogram.cu",
@@ -276,7 +343,8 @@ def check_histogram(ds_x, ds_y, ds_w, n_bins, n_classes, k, gen, dev):
         jax="repro.kernels.histogram.frontier_histogram",
         max_abs_err=max_err, ms=ms, kernel_ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-        shape=dict(N=n, A=a_dim, B1=n_bins + 1, C=n_classes, K=k))
+        shape=dict(N=n, A=a_dim, B1=n_bins + 1, C=n_classes, K=k),
+        regimes=timed)
     return record, sub_hist
 
 
@@ -309,7 +377,7 @@ def check_split_gain(sub_hist, cont, nb, n_bins, gen, dev):
     # edge shapes: integral counts, non-empty padding bins, C = 23, B off
     # the block size, discrete attributes, total_w above the known weight
     for (k, a, b, c) in [(16, 6, 13, 23), (7, 5, 300, 3), (32, 9, 256, 2),
-                         (3, 4, 1, 2)]:
+                         (3, 4, 1, 2), (256, 40, 128, 2), (1, 9, 256, 2)]:
         h = torch.randint(0, 6, (k, a, b, c), generator=gen, device=dev
                           ).float()
         h[torch.rand((k, a, b, c), generator=gen, device=dev) < 0.3] = 0
@@ -323,22 +391,26 @@ def check_split_gain(sub_hist, cont, nb, n_bins, gen, dev):
                 max_err = max(max_err, _gain_case(h, e_tw, e_cont, e_nb,
                                                   min_objs, crit))
     k, a_dim, _, c = hist.shape
-    ms = cuda_ms(lambda: sg.split_gain(hist, tw, cont, nb), reps=50)
+    ms = kernel_ms(lambda: sg.split_gain(hist, tw, cont, nb), "split_gain",
+                   reps=50)
+    call_ms = cuda_ms(lambda: sg.split_gain(hist, tw, cont, nb), reps=50)
     plain_ms = cuda_ms(lambda: ref.split_gain_ref(hist, tw, cont, nb),
                        reps=10)
     n_ops = k * a_dim * n_bins * (6 * c + 20)
     bound_ms, bound_by = bound(
         k * a_dim * n_bins * c * 4 + k * 4 + a_dim * 5 + k * a_dim * 8, n_ops)
-    print(f"split_gain: K={k} A={a_dim} B={n_bins} C={c} {ms:.4f} ms "
-          f"(plain {plain_ms:.4f}, bound {bound_ms:.6f} by {bound_by})")
+    print(f"split_gain: K={k} A={a_dim} B={n_bins} C={c} {ms:.4f} ms of "
+          f"device time (profiler; {call_ms:.4f} ms a call back to back, "
+          f"CUDA events), plain {plain_ms:.4f}, bound {bound_ms:.6f} by "
+          f"{bound_by}")
     return dict(
         name="split_gain", route="cuda",
         source="src/repro_torch/kernels/csrc/split_gain.cu",
         replaces="src/repro/kernels/split_gain.py:77",
         jax="repro.kernels.split_gain.split_gain",
-        max_abs_err=max_err, ms=ms, kernel_ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-        shape=dict(K=k, A=a_dim, B=n_bins, C=c))
+        max_abs_err=max_err, ms=ms, kernel_ms=ms, call_ms=call_ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, shape=dict(K=k, A=a_dim, B=n_bins, C=c))
 
 
 # --------------------------------------------------------------------------

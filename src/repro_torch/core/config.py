@@ -29,9 +29,11 @@ class GrowConfig:
       compact: gather the live cases (slot >= 0) into a dense buffer before
         the histogram, so deep supersteps cost O(live) instead of O(N)
         (see repro_torch.kernels.compaction).
-      block_t/block_k/block_b: pinned CUDA tile sizes: cases per
-        histogram block (t), slots per shared-memory sub-histogram (k) and
-        threads of a split-gain block (b).  None = shape-driven heuristic
+      block_t/block_k/block_b: pinned CUDA launch sizes: cases a
+        histogram block stages per tile (t); slots of the histogram's
+        shared-memory window (k; 0 = add straight into device memory, the
+        "direct" plan); threads of a split-gain block, 32 per (slot,
+        attribute) row (b).  None = the shape-driven plan
         (repro_torch.kernels.autotune).
     """
 

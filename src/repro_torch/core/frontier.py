@@ -100,7 +100,10 @@ def init_state(prob: FrontierProblem, y: torch.Tensor, w: torch.Tensor,
 # splitAtt's two kernels
 # --------------------------------------------------------------------------
 
-def _histogram(x, y, w, slot, *, prob: FrontierProblem, impl: str):
+def _histogram(x, y, w, slot, *, n_open: int, prob: FrontierProblem,
+               impl: str):
+    """The (K, A, B+1, C) histogram; the cases lie in slots below
+    ``n_open``, which sizes the kernel's shared window."""
     cfg = prob.cfg
     kw = dict(n_slots=cfg.frontier_slots, n_bins=prob.n_bins_max,
               n_classes=prob.n_classes)
@@ -108,7 +111,8 @@ def _histogram(x, y, w, slot, *, prob: FrontierProblem, impl: str):
         x, y, w, slot = compaction.live_cases(x, y, w, slot)
     if impl == "torch":
         return ref.frontier_histogram_ref(x, y, w, slot, **kw)
-    return histogram.frontier_histogram(x, y, w, slot, block_t=cfg.block_t,
+    return histogram.frontier_histogram(x, y, w, slot, n_live_slots=n_open,
+                                        block_t=cfg.block_t,
                                         block_k=cfg.block_k, **kw)
 
 
@@ -139,7 +143,8 @@ def split_pre(state: GrowState, *, prob: FrontierProblem
     # with m: nonzero returns them sorted
     ids = torch.nonzero(state.status[:m] == GrowState.STATUS_OPEN
                         ).flatten()[:k]
-    ids = torch.nn.functional.pad(ids, (0, k - ids.numel()), value=m)
+    n_open = ids.numel()             # host-side: nonzero has synchronised
+    ids = torch.nn.functional.pad(ids, (0, k - n_open), value=m)
     valid = ids < m
     ids_safe = torch.clamp_max(ids, m - 1)
 
@@ -154,8 +159,8 @@ def split_pre(state: GrowState, *, prob: FrontierProblem
     pure = torch.sum((freq > EPS_W).to(torch.int32), -1) <= 1
     small = total_w < 2.0 * cfg.min_objs
     deep = depth_k >= cfg.max_depth
-    return dict(ids=ids, valid=valid, ids_safe=ids_safe, slot=slot,
-                total_w=total_w, depth_k=depth_k,
+    return dict(ids=ids, n_open=n_open, valid=valid, ids_safe=ids_safe,
+                slot=slot, total_w=total_w, depth_k=depth_k,
                 pre_leaf=pure | small | deep)
 
 
@@ -165,7 +170,8 @@ def split_att(state: GrowState, pre: dict, x: torch.Tensor, y: torch.Tensor,
               ) -> dict[str, torch.Tensor]:
     """The hot phase: histogram + gain over (node, attribute)."""
     b_dim = prob.n_bins_max
-    hist_u = _histogram(x, y, w, pre["slot"], prob=prob, impl=impl)
+    hist_u = _histogram(x, y, w, pre["slot"], n_open=pre["n_open"],
+                        prob=prob, impl=impl)
     hist = hist_u[:, :, :b_dim, :]
     unknown = hist_u[:, :, b_dim, :]                              # (K, A, C)
     score, split_bin = _gains(hist, pre["total_w"], attr_is_cont, n_bins,

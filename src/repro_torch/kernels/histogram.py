@@ -16,11 +16,12 @@ from repro_torch.kernels import _build, autotune
 
 # Launches of the kernel in this process (the main path's proof of use).
 LAUNCHES = 0
+# Launches by plan ("direct", "shared"): which accumulation path ran.
+PLANS = {"direct": 0, "shared": 0}
 
 _P = ctypes.c_void_p
-_ARGTYPES = [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_longlong, ctypes.c_int, _P]
+_I = ctypes.c_int
+_ARGTYPES = [_P, _P, _P, _P, _P, ctypes.c_longlong] + [_I] * 11 + [_P]
 
 
 def _lib() -> ctypes.CDLL:
@@ -46,10 +47,17 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 
 def frontier_histogram(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                        slot: torch.Tensor, *, n_slots: int, n_bins: int,
-                       n_classes: int, block_t: int | None = None,
+                       n_classes: int, n_live_slots: int | None = None,
+                       block_t: int | None = None,
                        block_k: int | None = None) -> torch.Tensor:
     """(K, A, B+1, C) weighted counts of ``x`` int32 (N, A) bins, ``y``
-    int32 (N,) classes, ``w`` f32 (N,) weights, ``slot`` int32 (N,)."""
+    int32 (N,) classes, ``w`` f32 (N,) weights, ``slot`` int32 (N,).
+
+    ``n_live_slots`` says that the cases lie in slots below it (the open
+    frontier's size): the planner sizes its shared window by it.  It is a
+    hint, not a filter: a case of a higher slot is counted all the same.
+    ``block_t`` / ``block_k`` pin the plan (see ``autotune.plan_histogram``).
+    """
     global LAUNCHES
     dev = x.device
     if dev.type != "cuda":
@@ -67,16 +75,19 @@ def frontier_histogram(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
         return out
     plan = autotune.plan_histogram(
         n_cases=n, n_slots=n_slots, n_bins=n_bins, n_classes=n_classes,
-        n_attrs=a_dim, block_t=block_t, block_k=block_k)
+        n_attrs=a_dim, n_live_slots=n_live_slots, block_t=block_t,
+        block_k=block_k)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.frontier_histogram_launch(
             x.data_ptr(), y.data_ptr(), w.data_ptr(), slot.data_ptr(),
-            out.data_ptr(), n, a_dim, n_slots, n_bins, n_classes,
-            plan.block_k, plan.block_t, plan.threads, stream)
+            out.data_ptr(), n, a_dim, n_slots, plan.live, n_bins, n_classes,
+            plan.block_k, plan.block_t, plan.blocks, plan.windows,
+            plan.threads, plan.smem, stream)
     if err:
         raise RuntimeError("frontier_histogram launch failed: "
                            + lib.frontier_histogram_error(err).decode())
     LAUNCHES += 1
+    PLANS[plan.mode] += 1
     return out

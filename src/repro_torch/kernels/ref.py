@@ -3,6 +3,8 @@ what the kernels are held against on the card."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core import entropy
@@ -11,14 +13,12 @@ from repro_torch.kernels.tree_infer import (
     COL_ATTR, COL_CHILD0, COL_CLASS, COL_HEAVY, COL_NCHILD, COL_SPLIT)
 
 
-def frontier_histogram_ref(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
-                           slot: torch.Tensor, *, n_slots: int, n_bins: int,
-                           n_classes: int) -> torch.Tensor:
-    """(K, A, B+1, C) weighted counts via one flat ``index_add_``.
-
-    Bin B collects unknown values (-1); slot -1 goes to a dump row that is
-    cut off.
-    """
+def histogram_scatter(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                      slot: torch.Tensor, *, n_slots: int, n_bins: int,
+                      n_classes: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain histogram's (index, weight) pair of every (case,
+    attribute): flat offsets into a (K+1, A, B+1, C) array, bin B for
+    unknown values (-1), a dump row K for slot -1."""
     n, a_dim = x.shape
     k, b, c = n_slots, n_bins, n_classes
     slot_safe = torch.where(slot >= 0, slot, k).long()
@@ -26,11 +26,22 @@ def frontier_histogram_ref(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     attr = torch.arange(a_dim, device=x.device)
     flat = ((slot_safe[:, None] * a_dim + attr[None, :]) * (b + 1)
             + bin_safe) * c + y.long()[:, None]
-    hist = torch.zeros(((k + 1) * a_dim * (b + 1) * c,), dtype=torch.float32,
+    return (flat.reshape(-1),
+            w.to(torch.float32)[:, None].expand(n, a_dim).reshape(-1))
+
+
+def frontier_histogram_ref(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                           slot: torch.Tensor, *, n_slots: int, n_bins: int,
+                           n_classes: int) -> torch.Tensor:
+    """(K, A, B+1, C) weighted counts via one flat ``index_add_`` of
+    :func:`histogram_scatter`'s pairs; the dump row is cut off."""
+    kw = dict(n_slots=n_slots, n_bins=n_bins, n_classes=n_classes)
+    flat, src = histogram_scatter(x, y, w, slot, **kw)
+    shape = (n_slots + 1, x.shape[1], n_bins + 1, n_classes)
+    hist = torch.zeros((math.prod(shape),), dtype=torch.float32,
                        device=x.device)
-    hist.index_add_(0, flat.reshape(-1),
-                    w.to(torch.float32)[:, None].expand(n, a_dim).reshape(-1))
-    return hist.reshape(k + 1, a_dim, b + 1, c)[:k]
+    hist.index_add_(0, flat, src)
+    return hist.reshape(shape)[:n_slots]
 
 
 def split_gain_ref(hist: torch.Tensor, total_w: torch.Tensor, attr_is_cont,

@@ -18,9 +18,9 @@ from repro_torch.kernels import _build, autotune
 LAUNCHES = 0
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
 _ARGTYPES = [_P, ctypes.c_longlong, ctypes.c_longlong, _P, _P, _P, _P, _P,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_float, ctypes.c_int, ctypes.c_int, _P]
+             _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I, _I, _I, _P]
 CRITERIA = ("gain", "gain_ratio")
 
 
@@ -81,8 +81,8 @@ def split_gain(hist: torch.Tensor, total_w: torch.Tensor,
             hist.data_ptr(), hist.stride(0), hist.stride(1),
             total_w.data_ptr(), attr_is_cont.data_ptr(), n_bins.data_ptr(),
             score.data_ptr(), split_bin.data_ptr(), k, a_dim, b_dim, c_dim,
-            float(min_objs), int(criterion == "gain_ratio"), plan.threads,
-            stream)
+            float(min_objs), int(criterion == "gain_ratio"), plan.warps,
+            int(plan.regs), plan.seg, plan.seg_pad, plan.smem, stream)
     if err:
         raise RuntimeError("split_gain launch failed: "
                            + lib.split_gain_error(err).decode())

@@ -1,17 +1,28 @@
 """Device profile of one SyD10M9A build on the GPU.
 
     PYTHONPATH=src python3 -m repro_torch.profile_build
+    PYTHONPATH=src python3 -m repro_torch.profile_build --against OTHER/src
+
+The second form profiles the port of another checkout (an earlier commit
+unpacked with ``git archive``) and this one in turns, against, this, this,
+against, each in a process of its own, so that the two compare on one card.
 
 Grows the SyD10M9A tree (10,000,000 cases, seed 0, 256 bins; the
 YaDTWorkload grow configuration of ``src/repro/configs/yadt.py``, the same
 as ``chip_smoke.py``) once unprofiled, for the build's wall time, and once
 under ``torch.profiler`` with device activity only.  Prints one JSON object:
 both wall times, the device's busy time and idle share of the profiled
-build, the device time of the costliest kernels, and the histogram kernel's
-device time summed over the build's launches beside the bound of the same
-launches.  A third, unprofiled build records each launch's shape for that
-bound.  It checks no result; ``chip_smoke.py`` holds the kernels and the
-trees.
+build, the device time of the costliest kernels, and for each splitAtt
+kernel (the histogram, split gain) its device time summed over the build's
+launches beside the bound of the same launches (the histogram's also by
+live cases a launch).  A third, unprofiled build
+records each launch's shape for those bounds and counts the histogram's
+launches by plan.  A fourth, ``impl="torch"``, times the library call
+beside the histogram: each superstep's ``index_add_`` of the plain version
+(CUDA events around the call alone, the card kept busy while the call is
+queued); the trees are equal, so its launches have the kernel's shapes.
+It checks no result; ``chip_smoke.py`` holds the kernels and the trees.
+An earlier port reports no launches by plan and no library time.
 """
 
 from __future__ import annotations
@@ -27,33 +38,50 @@ GROW = dict(max_nodes=1 << 18, frontier_slots=256)
 # CUDA cores' f32 rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# Cycles the card spins before each timed index_add_, so that the call is
+# queued before its start event runs (about 20 us at the H100's clock).
+QUEUE_CYCLES = 40_000
 
 
-def histogram_launches(ds, cfg) -> list[tuple[int, int, int]]:
-    """(cases, attributes, non-zero output cells) of every histogram kernel
-    launch of one build, from a build through a wrapped wrapper."""
+def splitatt_launches(ds, cfg) -> tuple[list, list, dict]:
+    """Of every kernel launch of one build, from a build through wrapped
+    wrappers: the histogram's (cases, attributes, non-zero output cells),
+    split gain's (K, A, B, C), and the histogram's launches by plan."""
     import torch
 
     from repro_torch.core import frontier
-    from repro_torch.kernels import histogram
+    from repro_torch.kernels import histogram, split_gain
 
-    wrapper = histogram.frontier_histogram
-    shapes = []
+    hist_wrapper, gain_wrapper = histogram.frontier_histogram, \
+        split_gain.split_gain
+    hist_shapes, gain_shapes = [], []
+    plans = dict(getattr(histogram, "PLANS", {}))   # an earlier port: none
 
-    def recorded(x, *args, **kw):
+    def hist_recorded(x, *args, **kw):
         launches = histogram.LAUNCHES
-        out = wrapper(x, *args, **kw)
+        out = hist_wrapper(x, *args, **kw)
         if histogram.LAUNCHES > launches:
-            shapes.append((x.shape[0], x.shape[1],
-                           int(torch.count_nonzero(out))))
+            hist_shapes.append((x.shape[0], x.shape[1],
+                                int(torch.count_nonzero(out))))
         return out
 
-    histogram.frontier_histogram = recorded
+    def gain_recorded(hist, *args, **kw):
+        launches = split_gain.LAUNCHES
+        out = gain_wrapper(hist, *args, **kw)
+        if split_gain.LAUNCHES > launches:
+            gain_shapes.append(tuple(hist.shape))
+        return out
+
+    histogram.frontier_histogram = hist_recorded
+    split_gain.split_gain = gain_recorded
     try:
         frontier.build(ds, cfg)
     finally:
-        histogram.frontier_histogram = wrapper
-    return shapes
+        histogram.frontier_histogram = hist_wrapper
+        split_gain.split_gain = gain_wrapper
+    by_plan = {k: v - plans.get(k, 0)
+               for k, v in getattr(histogram, "PLANS", {}).items()}
+    return hist_shapes, gain_shapes, by_plan
 
 
 def histogram_bound_ms(n: int, a: int, cells: int) -> tuple[float, str]:
@@ -64,6 +92,74 @@ def histogram_bound_ms(n: int, a: int, cells: int) -> tuple[float, str]:
     t_bytes = (n * (4 * a + 12) + cells * 4) / HBM_BYTES_PER_S * 1e3
     t_ops = n * a / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# Live-case classes of the histogram's launches, for the time by size.
+SIZE_EDGES = (10_000, 100_000, 1_000_000, 5_000_000)
+
+
+def histogram_by_size(prof, shapes, bounds) -> list[dict]:
+    """The histogram kernel's launches of the profiled build, in launch
+    order, paired with the recorded build's shapes (the builds are the
+    same), summed by live cases: launches, cases, device ms, bound ms."""
+    times = sorted((e.time_range.start, e.time_range.end - e.time_range.start)
+                   for e in prof.events()
+                   if "frontier_histogram_kernel" in e.name)
+    if len(times) != len(shapes):
+        return []
+    edges = (0, *SIZE_EDGES, None)
+    rows = []
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        idx = [i for i, (n, _, _) in enumerate(shapes)
+               if n >= lo and (hi is None or n < hi)]
+        rows.append(dict(
+            cases_from=lo, cases_below=hi, launches=len(idx),
+            cases=sum(shapes[i][0] for i in idx),
+            kernel_ms=sum(times[i][1] for i in idx) / 1e3,
+            bound_ms=sum(bounds[i][0] for i in idx)))
+    return rows
+
+
+def split_gain_bound_ms(k: int, a: int, b: int, c: int) -> float:
+    """The (K, A, B, C) f32 histogram read once (bytes bound it)."""
+    return k * a * b * c * 4 / HBM_BYTES_PER_S * 1e3
+
+
+def index_add_ms(ds, cfg) -> tuple[float | None, int]:
+    """Device time of the plain histogram's ``index_add_`` summed over one
+    ``impl="torch"`` build, and its number of calls (None, 0 for a port
+    without ``ref.histogram_scatter``)."""
+    import torch
+
+    from repro_torch.core import frontier
+    from repro_torch.kernels import ref
+
+    if not hasattr(ref, "histogram_scatter"):
+        return None, 0
+    plain = ref.frontier_histogram_ref
+    events = []
+
+    def timed(x, y, w, slot, *, n_slots, n_bins, n_classes):
+        flat, src = ref.histogram_scatter(x, y, w, slot, n_slots=n_slots,
+                                          n_bins=n_bins, n_classes=n_classes)
+        shape = (n_slots + 1, x.shape[1], n_bins + 1, n_classes)
+        hist = torch.zeros(shape, dtype=torch.float32, device=x.device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_CYCLES)
+        start.record()
+        hist.view(-1).index_add_(0, flat, src)
+        end.record()
+        events.append((start, end))
+        return hist[:n_slots]
+
+    ref.frontier_histogram_ref = timed
+    try:
+        frontier.build(ds, cfg, impl="torch")
+    finally:
+        ref.frontier_histogram_ref = plain
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events), len(events)
 
 
 def profile(ds, cfg, *, top: int = 12) -> dict:
@@ -90,14 +186,20 @@ def profile(ds, cfg, *, top: int = 12) -> dict:
                if e.device_type == DeviceType.CUDA]
     busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
     costliest = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    # by name; split gain has a kernel per kind of plan
     hist = [e for e in kernels if "frontier_histogram_kernel" in e.key]
-    shapes = histogram_launches(ds, cfg)
-    if len(hist) != 1 or hist[0].count != len(shapes):
-        raise RuntimeError(
-            f"histogram kernel in the profile: "
-            f"{[(e.key, e.count) for e in hist]}, {len(shapes)} launches in "
-            f"the recorded build")
-    bounds = [histogram_bound_ms(*shape) for shape in shapes]
+    gain = [e for e in kernels if "split_gain" in e.key]
+    hist_shapes, gain_shapes, by_plan = splitatt_launches(ds, cfg)
+    for name, found, shapes in (("histogram", hist, hist_shapes),
+                                ("split gain", gain, gain_shapes)):
+        if sum(e.count for e in found) != len(shapes):
+            raise RuntimeError(
+                f"{name} kernels in the profile: "
+                f"{[(e.key, e.count) for e in found]}, {len(shapes)} "
+                f"launches in the recorded build")
+    bounds = [histogram_bound_ms(*shape) for shape in hist_shapes]
+    by_size = histogram_by_size(prof, hist_shapes, bounds)
+    library_ms, library_calls = index_add_ms(ds, cfg)
     return dict(
         build_wall_s=wall, profiled_wall_s=profiled_wall,
         device_busy_s=busy_s if kernels else None,
@@ -106,15 +208,55 @@ def profile(ds, cfg, *, top: int = 12) -> dict:
                           device_ms=e.self_device_time_total / 1e3)
                      for e in costliest[:top]],
         histogram=dict(
-            launches=len(shapes), cases=sum(n for n, _, _ in shapes),
-            cells_written=sum(c for _, _, c in shapes),
-            kernel_ms=hist[0].self_device_time_total / 1e3,
+            launches=len(hist_shapes),
+            launches_by_plan=by_plan,
+            cases=sum(n for n, _, _ in hist_shapes),
+            cells_written=sum(c for _, _, c in hist_shapes),
+            kernel_ms=sum(e.self_device_time_total for e in hist) / 1e3,
             bound_ms=sum(t for t, _ in bounds),
-            launches_bound_by_bytes=sum(by == "bytes" for _, by in bounds)))
+            launches_bound_by_bytes=sum(by == "bytes" for _, by in bounds),
+            library_ms=library_ms, library_calls=library_calls,
+            by_live_cases=by_size),
+        split_gain=dict(
+            launches=len(gain_shapes),
+            kernel_ms=sum(e.self_device_time_total for e in gain) / 1e3,
+            bound_ms=sum(split_gain_bound_ms(*s) for s in gain_shapes)))
 
 
-def main() -> int:
+def compare(against: str) -> int:
+    """Profile the port in ``against`` (the ``src`` directory of another
+    checkout, such as an earlier commit's) and this one in turns: against,
+    this, this, against, each in a process of its own.  One JSON line a
+    run."""
     import subprocess
+    import sys
+    from pathlib import Path
+
+    here = str(Path(__file__).resolve().parents[1])
+    for label, src in (("against", against), ("this", here),
+                       ("this", here), ("against", against)):
+        out = subprocess.run([sys.executable, __file__, "--src", src],
+                             capture_output=True, text=True, check=True)
+        line = json.loads(out.stdout.strip().splitlines()[-1])
+        print(json.dumps({"run": label, "src": src, **line}), flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+    import subprocess
+    import sys
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", help="profile the repro_torch package in this "
+                    "directory (run this file by its path for it)")
+    ap.add_argument("--against", help="the src directory of another "
+                    "checkout: profile it and this one in turns")
+    args = ap.parse_args(argv)
+    if args.against:
+        return compare(args.against)
+    if args.src:
+        sys.path.insert(0, args.src)
 
     import torch
 

@@ -6,7 +6,8 @@ one each test skips.  On the card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Histogram: exact for integral weights, atol 1e-4 / rtol 1e-5 for random f32
-weights (device atomics add in no fixed order).  Split gain: bins and the
+weights (device atomics add in no fixed order), in every regime of its plan
+and with each plan pinned.  Split gain: bins and the
 -inf pattern exact, scores within 1e-5 * (1 + |score|) (the discrete branch
 sums its bins in another order than torch.sum).  Forest traversal: labels
 exact.  Flash attention (bf16: the tensor-core kernel, f32: the scalar one):
@@ -57,10 +58,78 @@ def test_histogram_kernel_matches_plain(dev, n, a, b, c, k, integral):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
 
 
+# The regimes of the histogram's plan (autotune.plan_histogram), as
+# (name, N, A, B, C, K, live slots): every case in one slot with 5-, 9- and
+# 20-value discrete columns (shared window), 20% of the cases live over 256
+# slots and compacted (direct adds), census_pums' shape, K = 1, N = 1.
+HIST_REGIMES = [
+    ("one slot, low-cardinality columns", 400_000, 9, 256, 2, 256, 1),
+    ("20% live over 256 slots, compacted", 500_000, 9, 256, 2, 256, 256),
+    ("census shape, one slot", 100_000, 40, 128, 2, 256, 1),
+    ("census shape, 256 slots", 100_000, 40, 128, 2, 256, 256),
+    ("K = 1", 200_000, 9, 256, 2, 1, 1),
+    ("N = 1", 1, 9, 256, 2, 256, 1),
+]
+
+
+@pytest.mark.parametrize("regime", HIST_REGIMES, ids=lambda r: r[0])
+@pytest.mark.parametrize("pins", [{}, dict(block_k=0),
+                                  dict(block_k=1, block_t=96)],
+                         ids=["planned", "direct", "shared-1-slot-windows"])
+@pytest.mark.parametrize("integral", [True, False])
+def test_histogram_kernel_regimes(dev, regime, pins, integral):
+    from repro_torch.kernels import compaction, histogram, ref
+    _, n, a, b, c, k, live = regime
+    rng = np.random.default_rng(n + a + k)
+    x = rng.integers(-1, b, (n, a)).astype(np.int32)
+    for col, card in zip(range(a - 3, a), (5, 9, 20)):
+        x[:, col] = rng.integers(0, card, n)
+    y = rng.integers(0, c, n).astype(np.int32)
+    w = (rng.integers(0, 4, n) if integral
+         else rng.uniform(0.1, 2.0, n)).astype(np.float32)
+    slot = rng.integers(0, live, n).astype(np.int32)
+    if live > 1:
+        slot[rng.random(n) >= 0.2] = -1
+    args = [torch.as_tensor(v, device=dev) for v in (x, y, w, slot)]
+    kw = dict(n_slots=k, n_bins=b, n_classes=c)
+    want = ref.frontier_histogram_ref(*args, **kw)
+    if live > 1:
+        args = list(compaction.live_cases(*args))
+    got = histogram.frontier_histogram(*args, n_live_slots=live, **kw,
+                                       **pins)
+    torch.cuda.synchronize()
+    if integral:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+
+
+def test_histogram_kernel_counts_slots_beyond_the_hint(dev):
+    """A live-slot hint below the real slots drops nothing."""
+    from repro_torch.kernels import histogram, ref
+    rng = np.random.default_rng(11)
+    n, a, b, c, k = 50_000, 5, 32, 3, 16
+    args = [torch.as_tensor(v, device=dev) for v in (
+        rng.integers(-1, b, (n, a)).astype(np.int32),
+        rng.integers(0, c, n).astype(np.int32),
+        rng.integers(0, 3, n).astype(np.float32),
+        rng.integers(-1, k, n).astype(np.int32))]
+    kw = dict(n_slots=k, n_bins=b, n_classes=c)
+    want = ref.frontier_histogram_ref(*args, **kw)
+    for hint, pins in ((1, {}), (4, dict(block_k=2)), (3, dict(block_k=0))):
+        got = histogram.frontier_histogram(*args, n_live_slots=hint, **kw,
+                                           **pins)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (hint, pins)
+
+
 @pytest.mark.parametrize("criterion", ["gain", "gain_ratio"])
 @pytest.mark.parametrize("k,a,b,c", [(4, 3, 8, 2), (10, 5, 13, 4),
                                      (16, 6, 13, 23), (7, 5, 300, 3),
-                                     (256, 9, 256, 2), (3, 4, 1, 2)])
+                                     (256, 9, 256, 2), (3, 4, 1, 2),
+                                     (256, 40, 128, 2), (1, 9, 256, 2),
+                                     (5, 4, 100, 2), (3, 6, 33, 2),
+                                     (2, 3, 257, 2)])
 def test_split_gain_kernel_matches_plain(dev, k, a, b, c, criterion):
     from repro_torch.kernels import ref, split_gain
     rng = np.random.default_rng(k * a)
@@ -82,6 +151,60 @@ def test_split_gain_kernel_matches_plain(dev, k, a, b, c, criterion):
         assert torch.equal(fin, torch.isfinite(s_k))
         assert torch.all((s_k[fin] - s_r[fin]).abs()
                          <= 1e-5 * (1 + s_r[fin].abs()))
+
+
+@pytest.mark.parametrize("criterion", ["gain", "gain_ratio"])
+@pytest.mark.parametrize("k,a,b,c", [(256, 9, 256, 2), (37, 6, 300, 23)])
+def test_split_gain_kernel_sparse_and_padded_rows(dev, k, a, b, c,
+                                                  criterion):
+    """Mostly empty bins (the kernel skips an empty bin and scores an
+    invalid threshold from its weights alone) and padded slots (all zero,
+    total weight 0: -inf, or 0 when min_objs is 0): bins, the -inf pattern
+    and the scores of the padded rows exactly as the plain version."""
+    from repro_torch.kernels import ref, split_gain
+    rng = np.random.default_rng(k + b)
+    hist = rng.integers(0, 4, (k, a, b, c)).astype(np.float32) * (
+        rng.random((k, a, b, c)) < 0.05)
+    hist[k // 2:] = 0
+    hist = torch.as_tensor(hist, device=dev)
+    tw = hist.sum((1, 2, 3)) / a
+    cont = torch.as_tensor(np.arange(a) % 3 != 2, device=dev)
+    nb = torch.as_tensor(rng.integers(1, b + 1, a).astype(np.int32),
+                         device=dev)
+    for min_objs in (2.0, 0.0):
+        s_k, b_k = split_gain.split_gain(hist, tw, cont, nb,
+                                         min_objs=min_objs,
+                                         criterion=criterion)
+        s_r, b_r = ref.split_gain_ref(hist, tw, cont, nb, min_objs=min_objs,
+                                      criterion=criterion)
+        assert torch.equal(b_k, b_r)
+        assert torch.equal(s_k[k // 2:], s_r[k // 2:])
+        fin = torch.isfinite(s_r)
+        assert torch.equal(fin, torch.isfinite(s_k))
+        assert torch.all((s_k[fin] - s_r[fin]).abs()
+                         <= 1e-5 * (1 + s_r[fin].abs()))
+
+
+@pytest.mark.parametrize("b,c", [(256, 2), (13, 23)])
+@pytest.mark.parametrize("block_b", [32, 64, 1024])
+def test_split_gain_kernel_pinned_block(dev, b, c, block_b):
+    """A pinned ``block_b`` (threads a block, one row a warp) launches the
+    register kernel (two classes) and the shared-memory one alike."""
+    from repro_torch.kernels import ref, split_gain
+    rng = np.random.default_rng(b + block_b)
+    k, a = 40, 5
+    hist = torch.as_tensor(rng.integers(0, 5, (k, a, b, c)).astype(
+        np.float32), device=dev)
+    tw = hist.sum((1, 2, 3)) / a
+    cont = torch.as_tensor(np.arange(a) % 2 == 0, device=dev)
+    nb = torch.as_tensor(np.full(a, b, np.int32), device=dev)
+    s_k, b_k = split_gain.split_gain(hist, tw, cont, nb, block_b=block_b)
+    s_r, b_r = ref.split_gain_ref(hist, tw, cont, nb)
+    assert torch.equal(b_k, b_r)
+    fin = torch.isfinite(s_r)
+    assert torch.equal(fin, torch.isfinite(s_k))
+    assert torch.all((s_k[fin] - s_r[fin]).abs()
+                     <= 1e-5 * (1 + s_r[fin].abs()))
 
 
 def test_build_cuda_equals_torch_on_the_card(dev):
