@@ -27,8 +27,12 @@ Phases (each one that fails ends the run with a non-zero exit):
      CUDA build), packed on the card at M = 2^18; the traversal kernel
      against its plain version at the full shape (T = 16, N = 10M) with and
      without unknowns, at edge shapes (N = 1, 257, 1024, a lone leaf, a
-     census_pums forest) and against the per-tree oracle on a slice; times
-     the kernel, the plain version and predict() end to end.
+     census_pums forest with and without unknowns, 70,000 small trees) and
+     against the per-tree oracle on a slice; times the kernel alone in each
+     regime of its plan (N = 10M, the serving batch N = 1,024, census_pums,
+     the 70,000 trees; CUDA events around launches queued behind a spin of
+     the card) beside its bound and prints the plan taken; times
+     the plain version and predict() end to end (one launch).
   6. serving: the forest published to a registry under build/, opened by a
      ModelHandle on the card and served as 65,536 single-row requests by a
      BatchPredictService over 4 replicas (policy ws, max_batch 1024); every
@@ -478,21 +482,6 @@ def grow_both(name, ds, cfg, dev) -> dict:
 # phase 5: the packed forest and the traversal kernel
 # --------------------------------------------------------------------------
 
-def grow_forest(ds, cfg, n_trees):
-    """Forest members as the JAX trainer's per-tree task grows them:
-    ``frontier.build(ds, grow, attr_mask=s.attr_mask, case_w=s.case_w)``
-    with ``s = sampling.draw(seed, tree_id, ...)`` (the CUDA build)."""
-    from repro_torch.core import frontier
-    from repro_torch.ensemble import sampling
-    trees = []
-    for t in range(n_trees):
-        s = sampling.draw(FOREST_SEED, t, n_cases=ds.n_cases,
-                          n_attrs=ds.n_attrs, base_w=ds.w)
-        trees.append(frontier.build(ds, cfg, attr_mask=s.attr_mask,
-                                    case_w=s.case_w))
-    return trees
-
-
 def _with_unknowns(x, gen):
     import torch
     x = x.clone()
@@ -501,41 +490,14 @@ def _with_unknowns(x, gen):
     return x
 
 
-def visited_rows(fo, leaves) -> int:
-    """Distinct (tree, node) table rows on the paths from each tree's root
-    to the (T, N) leaf nodes ``leaves``: the leaves and their ancestors."""
-    import torch
-    t_dim, m_dim = fo.n_trees, fo.capacity
-    dev = leaves.device
-    row = torch.arange(t_dim * m_dim, device=dev)
-    live = row % m_dim < fo.n_nodes.long().repeat_interleave(m_dim)
-    nchild = torch.where(live, fo.node_nchild.reshape(-1).long(), 0)
-    nchild = nchild.clamp_min(0)
-    # parent[r]: the flat row of r's parent (-1 at roots and dead rows)
-    node = row.repeat_interleave(nchild)
-    rank = (torch.arange(node.numel(), device=dev)
-            - (torch.cumsum(nchild, 0) - nchild).repeat_interleave(nchild))
-    child = (node // m_dim * m_dim + rank
-             + fo.node_child0.reshape(-1).long().repeat_interleave(nchild))
-    parent = torch.full((t_dim * m_dim,), -1, dtype=torch.int64, device=dev)
-    parent[child] = node
-    seen = torch.zeros(t_dim * m_dim, dtype=torch.bool, device=dev)
-    seen[(leaves.long() + torch.arange(t_dim, device=dev)[:, None] * m_dim)
-         .reshape(-1)] = True
-    for _ in range(fo.n_levels):
-        up = parent[seen]
-        seen[up[up >= 0]] = True
-    return int(seen.sum())
-
-
-def _infer_case(fo, x, cont, what: str) -> None:
+def _infer_case(tab, depth, x, cont, what: str) -> None:
     """Kernel labels == plain labels, exactly."""
     import torch
     from repro_torch.kernels import ref, tree_infer
-    tab, depth = fo.node_table(), fo.n_levels
     got = tree_infer.forest_predict(tab, x, cont, max_depth=depth)
     want = ref.forest_predict_ref(tab, x, cont, max_depth=depth)
-    check(got.shape == (fo.n_trees, x.shape[0]) and got.dtype == torch.int32,
+    check(got.shape == (tab.shape[0], x.shape[0])
+          and got.dtype == torch.int32,
           f"forest_predict: bad output {tuple(got.shape)} {got.dtype} "
           f"({what})")
     check(torch.equal(got, want), f"forest_predict != plain ({what}): "
@@ -544,10 +506,17 @@ def _infer_case(fo, x, cont, what: str) -> None:
 
 def check_forest(syd, census, cfg, gen, dev) -> tuple[dict, object, dict]:
     """Phase 5.  Returns (kernel record, the SyD forest, info)."""
+    import dataclasses
+
     import torch
     from repro_torch.core.tree import Tree
     from repro_torch.infer import forest as F
-    from repro_torch.kernels import histogram, ref, split_gain, tree_infer
+    from repro_torch.kernels import autotune, histogram, ref, split_gain, \
+        tree_infer
+    # the many-trees case: SMALL_TREES random small trees, more than the
+    # 65,535 of a grid's y extent
+    from repro_torch.profile_infer import SMALL_SEED, SMALL_TREES, \
+        device_ms, grow_forest, small_trees, traversal_bound
 
     histogram.LAUNCHES = split_gain.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -566,11 +535,13 @@ def check_forest(syd, census, cfg, gen, dev) -> tuple[dict, object, dict]:
     x = torch.as_tensor(syd.x).to(dev)
     cont = torch.as_tensor(syd.attr_is_cont).to(dev)
     n, a_dim = x.shape
+    tab, depth = fo.node_table(), fo.n_levels
     x_unk = _with_unknowns(x, gen)
-    _infer_case(fo, x, cont, "full shape")
-    _infer_case(fo, x_unk, cont, "full shape, 5% unknown")
+    _infer_case(tab, depth, x, cont, "full shape")
+    _infer_case(tab, depth, x_unk, cont, "full shape, 5% unknown")
     for rows in (1, 257, SERVE_MAX_BATCH):
-        _infer_case(fo, x_unk[:rows].contiguous(), cont, f"N = {rows}")
+        _infer_case(tab, depth, x_unk[:rows].contiguous(), cont,
+                    f"N = {rows}")
     # the per-tree oracle (tree.predict per member) on a slice
     head = x_unk[:100_000].contiguous()
     check(torch.equal(F.predict_per_tree(fo, head, cont),
@@ -582,30 +553,57 @@ def check_forest(syd, census, cfg, gen, dev) -> tuple[dict, object, dict]:
     leaf.n_nodes.fill_(1)
     lone = F.Forest.pack([leaf], device=dev)
     check(lone.n_levels == 1, f"lone leaf has {lone.n_levels} levels")
-    _infer_case(lone, x_unk[:257].contiguous(), cont, "lone leaf")
+    _infer_case(lone.node_table(), 1, x_unk[:257].contiguous(), cont,
+                "lone leaf")
     check(bool((F.predict(lone, x_unk[:257], cont) == 1).all()),
           "lone leaf forest does not predict its class")
     # wide discrete splits: a census_pums forest (A = 40)
     c_fo = F.Forest.pack(grow_forest(census, cfg, CENSUS_FOREST_TREES),
                          device=dev)
+    c_tab, c_depth = c_fo.node_table(), c_fo.n_levels
     c_x = torch.as_tensor(census.x).to(dev)
     c_cont = torch.as_tensor(census.attr_is_cont).to(dev)
-    _infer_case(c_fo, c_x, c_cont, "census_pums")
-    _infer_case(c_fo, _with_unknowns(c_x, gen), c_cont,
+    _infer_case(c_tab, c_depth, c_x, c_cont, "census_pums")
+    _infer_case(c_tab, c_depth, _with_unknowns(c_x, gen), c_cont,
                 "census_pums, 5% unknown")
+    # more trees than a grid's y dimension holds: small trees over a batch
+    small, small_depth = small_trees(SMALL_TREES, a_dim, seed=SMALL_SEED,
+                                     n_bins=SYD_BINS)
+    small = torch.as_tensor(small).to(dev)
+    batch = x[:SERVE_MAX_BATCH].contiguous()   # as phase 6 serves them
+    _infer_case(small, small_depth, x_unk[:SERVE_MAX_BATCH].contiguous(),
+                cont, f"T = {SMALL_TREES} small trees")
 
-    # timing at the full shape; then predict() as a user calls it, from
-    # host rows to labels on the card
-    tab, depth = fo.node_table(), fo.n_levels
-    ms = cuda_ms(lambda: tree_infer.forest_predict(
-        tab, x, cont, max_depth=depth), reps=5)
+    # each regime of the plan: the kernel beside its bound
+    regimes = []
+    for name, t_, x_, c_, d_, reps in (
+            (f"N={n}", tab, x, cont, depth, 5),
+            (f"N={SERVE_MAX_BATCH}", tab, batch, cont, depth, 200),
+            ("census_pums", c_tab, c_x, c_cont, c_depth, 10),
+            (f"T={SMALL_TREES}", small, batch, cont, small_depth, 50)):
+        plan = autotune.plan_infer_blocks(n_cases=x_.shape[0],
+                                          n_trees=t_.shape[0])
+        ms_ = device_ms(lambda: tree_infer.forest_predict(
+            t_, x_, c_, max_depth=d_), reps)
+        b = traversal_bound(t_, x_, c_, d_)
+        regimes.append(dict(regime=name, T=t_.shape[0], M=t_.shape[1],
+                            N=x_.shape[0], A=x_.shape[1], depth=d_,
+                            kernel_ms=ms_, bound_ms=b["bound_ms"],
+                            bound_by=b["bound_by"], steps=b["steps"],
+                            plan=dataclasses.asdict(plan)))
+        print(f"forest_predict {name}: T={t_.shape[0]} M={t_.shape[1]} "
+              f"A={x_.shape[1]} depth={d_} {ms_:.4f} ms (bound "
+              f"{b['bound_ms']:.5f} by {b['bound_by']}: bytes "
+              f"{b['bytes_ms']:.5f}, operations {b['operations_ms']:.5f}); "
+              f"plan {plan.mode}, {plan.threads} cases a block, "
+              f"{plan.blocks} blocks")
+    del small
+    full, serving = regimes[0], regimes[1]
     plain_ms = cuda_ms(lambda: ref.forest_predict_ref(
         tab, x, cont, max_depth=depth), reps=2, warmup=1)
-    batch = x[:SERVE_MAX_BATCH].contiguous()   # as phase 6 serves them
-    ms_batch = cuda_ms(lambda: tree_infer.forest_predict(
-        tab, batch, cont, max_depth=depth), reps=50)
     plain_batch_ms = cuda_ms(lambda: ref.forest_predict_ref(
         tab, batch, cont, max_depth=depth), reps=10)
+    # predict() as a user calls it, from host rows to labels on the card
     F.predict(fo, syd.x, syd.attr_is_cont)
     torch.cuda.synchronize()
     tree_infer.LAUNCHES = 0
@@ -617,39 +615,8 @@ def check_forest(syd, census, cfg, gen, dev) -> tuple[dict, object, dict]:
     check(predict_launches == 1,
           f"predict() launched the traversal kernel {predict_launches} times")
     acc = float((labels.cpu().numpy() == syd.y).mean())
-    # bytes: the rows, the distinct table rows they visit and the labels
-    # once each; operations: the descent steps this data takes (the depth
-    # of each (tree, case)'s leaf, read through the plain version with
-    # depths in the class column) times 6 integer operations a step (leaf
-    # test, unknown test, threshold test, two clip bounds, child add) at
-    # the scalar peak
-    depth_tab = tab.clone()
-    depth_tab[..., tree_infer.COL_CLASS] = fo.node_depth
-    leaf_tab = tab.clone()
-    leaf_tab[..., tree_infer.COL_CLASS] = torch.arange(
-        m_dim, dtype=torch.int32, device=dev)
-
-    def traversal_bound(rows):
-        steps = int(ref.forest_predict_ref(depth_tab, rows, cont,
-                                           max_depth=depth)
-                    .sum(dtype=torch.int64))
-        leaves = ref.forest_predict_ref(leaf_tab, rows, cont,
-                                        max_depth=depth)
-        n = rows.shape[0]
-        table = visited_rows(fo, leaves) * 32
-        n_bytes = n * a_dim * 4 + table + t_dim * n * 4
-        return steps, n_bytes, bound(n_bytes, 6 * steps)
-
-    steps, n_bytes, (full_bound_ms, full_bound_by) = traversal_bound(x)
-    _, _, (bound_ms, bound_by) = traversal_bound(batch)
-    del depth_tab, leaf_tab
-    bytes_ms, ops_ms = bound(n_bytes, 0)[0], bound(0, 6 * steps)[0]
-    print(f"forest_predict: T={t_dim} M={m_dim} N={n} A={a_dim} "
-          f"depth={depth} {ms:.4f} ms (plain {plain_ms:.4f}, bound "
-          f"{full_bound_ms:.4f} by {full_bound_by}: bytes {bytes_ms:.4f}, "
-          f"operations {ops_ms:.4f}); the serving batch N="
-          f"{SERVE_MAX_BATCH}: {ms_batch:.4f} ms (plain {plain_batch_ms:.4f}"
-          f", bound {bound_ms:.5f} by {bound_by}); predict() "
+    print(f"forest_predict: plain {plain_ms:.4f} ms at N={n}, "
+          f"{plain_batch_ms:.4f} ms at N={SERVE_MAX_BATCH}; predict() "
           f"{predict_s * 1e3:.3f} ms, {predict_launches} launch")
     # the record's times and bound are those of one serving batch, the
     # shape of every launch that the serving run (phase 6) counts
@@ -658,18 +625,22 @@ def check_forest(syd, census, cfg, gen, dev) -> tuple[dict, object, dict]:
         source="src/repro_torch/kernels/csrc/tree_infer.cu",
         replaces="src/repro/kernels/tree_infer.py:103",
         jax="repro.kernels.tree_infer.forest_predict",
-        max_abs_err=0, ms=ms_batch, kernel_ms=ms_batch,
-        plain_ms=plain_batch_ms, bound_ms=bound_ms, bound_by=bound_by,
+        max_abs_err=0, ms=serving["kernel_ms"],
+        kernel_ms=serving["kernel_ms"], plain_ms=plain_batch_ms,
+        bound_ms=serving["bound_ms"], bound_by=serving["bound_by"],
         library_ms=None,
         shape=dict(T=t_dim, M=m_dim, N=SERVE_MAX_BATCH, A=a_dim,
                    depth=depth),
-        full_shape=dict(N=n, ms=ms, plain_ms=plain_ms,
-                        bound_ms=full_bound_ms, bound_by=full_bound_by))
+        full_shape=dict(N=n, ms=full["kernel_ms"], plain_ms=plain_ms,
+                        bound_ms=full["bound_ms"],
+                        bound_by=full["bound_by"]),
+        regimes=regimes)
     info = dict(forest_trees=t_dim, capacity=m_dim, n_levels=depth,
-                descent_steps=steps,
+                descent_steps=full["steps"],
                 tree_nodes=[t.size for t in trees], grow_s=grow_s,
                 grow_launches=grow_launches, predict_s=predict_s,
-                predict_launches=predict_launches, forest_batch_ms=ms_batch,
+                predict_launches=predict_launches,
+                forest_batch_ms=serving["kernel_ms"],
                 train_accuracy=acc, census_trees=c_fo.n_trees,
                 census_capacity=c_fo.capacity)
     print(json.dumps(info))

@@ -13,12 +13,13 @@ the dynamic attribute) and the blocks in flight on 132 SMs:
               with two classes and B <= 256 each lane holds its segment of
               bins in registers, otherwise the tile sits in shared memory
               as class planes of 32 lane segments.
-  tree_infer: one thread per (tree, case); no shared memory.
+  tree_infer: one thread per (tree, case), a block block_n consecutive
+              cases of one tree, no shared memory; see plan_infer_blocks.
 
 ``GrowConfig.block_t`` pins the histogram's cases per tile, ``block_k`` its
 slots per shared window (0: the direct plan), ``block_b`` the split-gain
-block's threads (32 per row); ``block_n`` pins the traversal's block.  None
-means the choices below.
+block's threads (32 per row); ``block_n`` pins the traversal's cases (threads)
+a block.  None means the choices below.
 """
 
 from __future__ import annotations
@@ -58,8 +59,11 @@ HIST_SHARED_WAVES = 1
 GAIN_WARPS = 8
 GAIN_REGS_WARPS = 2
 GAIN_REGS = (1, 2, 4, 8)
-# Forest traversal: cases (threads) per block.
-INFER_THREADS = 256
+# Forest traversal: the widest block (cases of one tree), taken while the
+# grid still puts a block on every SM; a grid's y extent (trees; blocks
+# walk the trees beyond it in turn).
+INFER_THREADS = 1024
+GRID_Y_MAX = 65_535
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,7 +93,15 @@ class GainPlan:
 
 @dataclasses.dataclass(frozen=True)
 class InferPlan:
-    threads: int        # cases per block, one thread each
+    mode: str           # "wide" (INFER_THREADS cases a block) or "spread"
+                        # (fewer, so that the blocks cover the SMs)
+    threads: int        # cases a block, one thread each
+    case_blocks: int    # grid x: blocks a tree
+    tree_blocks: int    # grid y: trees at once, at most GRID_Y_MAX
+
+    @property
+    def blocks(self) -> int:
+        return self.case_blocks * self.tree_blocks
 
 
 def _blocks_per_sm(threads: int, smem: int) -> int:
@@ -203,18 +215,34 @@ def plan_split_gain(*, n_bins: int, n_classes: int,
                     seg_pad=int(seg_pad), smem=int(warps * row_bytes))
 
 
-def plan_infer_blocks(*, n_cases: int,
+def plan_infer_blocks(*, n_cases: int, n_trees: int,
                       block_n: int | None = None) -> InferPlan:
-    """Forest-traversal block for ``n_cases`` cases (pinned ``block_n``
-    wins): INFER_THREADS, no wider than the cases, in whole warps.
+    """Forest-traversal launch for ``n_trees`` trees over ``n_cases`` cases
+    (a pinned ``block_n``, the cases a block, wins): the widest power-of-two
+    block up to INFER_THREADS, no wider than the cases in whole warps, whose
+    grid still has at least H100_SMS blocks; 32 where none has.
 
     The TPU planner sized a case tile to hold the one-hot expansion and the
-    table in VMEM; here a thread holds one case and reads the table through
-    the read-only cache, so only the block width is left to choose.
+    table in VMEM; here a thread walks one case and reads the table through
+    the read-only cache, so only the block is left to choose: wide blocks
+    where the walks fill the card many times over (a block's lanes walk
+    neighbouring cases of one tree), and blocks spread over the SMs where a
+    small batch leaves them idle.
     """
+    n = max(1, int(n_cases))
+    t_dim = max(1, int(n_trees))
     if block_n is None:
-        block_n = min(INFER_THREADS, 32 * -(-max(1, n_cases) // 32))
+        block_n = 32
+        while (block_n < INFER_THREADS and 2 * block_n <= 32 * -(-n // 32)
+               and t_dim * -(-n // (2 * block_n)) >= H100_SMS):
+            block_n *= 2
     if block_n % 32 or not 32 <= block_n <= 1024:
         raise ValueError(f"traversal threads must be a multiple of 32 in "
                          f"[32, 1024], got {block_n}")
-    return InferPlan(threads=int(block_n))
+    case_blocks = -(-n // block_n)
+    if case_blocks >= 2 ** 31:
+        raise ValueError(f"{case_blocks} blocks of {block_n} cases pass the "
+                         f"2^31 - 1 of a grid's x extent")
+    return InferPlan(mode="wide" if block_n == INFER_THREADS else "spread",
+                     threads=int(block_n), case_blocks=int(case_blocks),
+                     tree_blocks=min(t_dim, GRID_Y_MAX))

@@ -58,7 +58,10 @@ def forest_predict_ref(node_tab: torch.Tensor, x_bins: torch.Tensor,
                        ) -> torch.Tensor:
     """(T, N) int32 leaf classes: ``max_depth`` steps of
     :func:`repro_torch.core.tree.descend_once` over all T trees at once,
-    gathering the (T, M) table columns at a (T, N) node tensor."""
+    gathering the (T, M) table columns at a (T, N) node tensor.  An
+    attribute at or above A reads as unknown, as the JAX package's
+    ``descend_once`` does (its out-of-range gather fills a negative
+    value)."""
     t_dim = node_tab.shape[0]
     n, a_dim = x_bins.shape
     col = node_tab.unbind(-1)
@@ -68,8 +71,9 @@ def forest_predict_ref(node_tab: torch.Tensor, x_bins: torch.Tensor,
     for _ in range(max_depth):
         attr = col[COL_ATTR].gather(1, node)
         nchild = col[COL_NCHILD].gather(1, node)
-        a_safe = torch.clamp_min(attr, 0).long()
-        b = x_flat[row0 + a_safe]
+        inside = attr < a_dim
+        a_safe = torch.clamp(attr, 0, max(a_dim - 1, 0)).long()
+        b = torch.where(inside, x_flat[row0 + a_safe], -1)
         child_cont = torch.where(b <= col[COL_SPLIT].gather(1, node), 0, 1)
         child = torch.where(attr_is_cont[a_safe], child_cont, b)
         # Unknown value: follow the heaviest child, as the build routed it.

@@ -19,12 +19,16 @@ from repro_torch.kernels import _build, autotune
 COL_ATTR, COL_SPLIT, COL_CHILD0, COL_NCHILD, COL_HEAVY, COL_CLASS = range(6)
 NODE_COLS = 8          # 6 live columns padded to 8: two int4 loads a row
 
-# Launches of the kernel in this process (the main path's proof of use).
+# Launches of the kernel in this process (the main path's proof of use),
+# and by plan ("wide": 1,024-case blocks, "spread": smaller blocks that put
+# a small batch on every SM).
 LAUNCHES = 0
+PLANS = {"wide": 0, "spread": 0}
 
 _P = ctypes.c_void_p
-_ARGTYPES = [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
+_ARGTYPES = [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, _P]
 
 
 def _lib() -> ctypes.CDLL:
@@ -43,7 +47,7 @@ def forest_predict(node_tab: torch.Tensor, x_bins: torch.Tensor,
     ``x_bins`` int32 (N, A) and ``attr_is_cont`` bool (A,), descending at
     most ``max_depth`` levels (a host integer: the forest's ``n_levels``).
 
-    ``block_n`` pins the cases per thread block (None: the autotune plan).
+    ``block_n`` pins the cases (threads) a block (None: the autotune plan).
     """
     global LAUNCHES
     dev = node_tab.device
@@ -74,16 +78,18 @@ def forest_predict(node_tab: torch.Tensor, x_bins: torch.Tensor,
         return out
     if m_dim == 0:
         raise ValueError("node_tab needs M >= 1 (the root)")
-    plan = autotune.plan_infer_blocks(n_cases=n, block_n=block_n)
+    plan = autotune.plan_infer_blocks(n_cases=n, n_trees=t_dim,
+                                      block_n=block_n)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.forest_predict_launch(
             node_tab.data_ptr(), x_bins.data_ptr(), attr_is_cont.data_ptr(),
             out.data_ptr(), n, a_dim, t_dim, m_dim, int(max_depth),
-            plan.threads, stream)
+            plan.threads, plan.tree_blocks, stream)
     if err:
         raise RuntimeError("forest_predict launch failed: "
                            + lib.forest_predict_error(err).decode())
     LAUNCHES += 1
+    PLANS[plan.mode] += 1
     return out

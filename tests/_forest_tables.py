@@ -45,3 +45,30 @@ def random_cases(rng, n, attr_is_cont, *, n_bins=8, unknown=0.15):
     x = rng.integers(0, n_bins, (n, len(attr_is_cont))).astype(np.int32)
     x[rng.random(x.shape) < unknown] = -1
     return x
+
+
+def shuffle_node_ids(rng, tab):
+    """The same forest with its node ids permuted: the root stays at row 0
+    and each node's children stay contiguous and in order, but the blocks
+    of siblings (and the unreachable rows) take random places, so the
+    lowest ids no longer hold the top levels."""
+    out = np.empty_like(tab)
+    n_trees, capacity, _ = tab.shape
+    for t in range(n_trees):
+        rows = tab[t]
+        covered = np.zeros(capacity, bool)
+        covered[0] = True
+        blocks = []
+        for i in np.flatnonzero(rows[:, 3] > 0):
+            c0, nc = int(rows[i, 2]), int(rows[i, 3])
+            blocks.append(np.arange(c0, c0 + nc))
+            covered[c0:c0 + nc] = True
+        blocks += [np.array([i]) for i in np.flatnonzero(~covered)]
+        old = np.concatenate(
+            [[0]] + [blocks[b] for b in rng.permutation(len(blocks))])
+        new_id = np.empty(capacity, np.int64)
+        new_id[old] = np.arange(capacity)
+        out[t, new_id] = rows
+        internal = rows[:, 3] > 0
+        out[t, new_id[internal], 2] = new_id[rows[internal, 2]]
+    return out

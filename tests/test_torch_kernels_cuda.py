@@ -224,32 +224,65 @@ def test_build_cuda_equals_torch_on_the_card(dev):
 
 
 # (T, M, A, N): a lone root leaf, N = 1 and 257 (off every block), a random
-# 4-tree forest, wider tables up to 2^14 rows
+# 4-tree forest, wider tables up to 2^14 rows; 70,000 lone leaves and
+# small trees (past the 65,535 trees of a grid's y dimension); A = 2,000
+# (bins far apart in a case's row)
 INFER_SHAPES = [(1, 1, 3, 1), (1, 1, 9, 257), (4, 64, 9, 1), (4, 64, 9, 257),
                 (4, 500, 6, 10_000), (3, 3000, 40, 5_000),
-                (2, 1 << 14, 9, 100_003)]
+                (2, 1 << 14, 9, 100_003), (70_000, 7, 9, 65),
+                (4, 500, 2000, 300)]
+
+
+def _infer_matches_plain(tab, x, cont, depth, block_n):
+    """One launch equals the plain version exactly and is counted, in
+    LAUNCHES and under its plan in PLANS."""
+    from repro_torch.kernels import autotune, ref, tree_infer
+    t, _, _ = tab.shape
+    n = x.shape[0]
+    mode = autotune.plan_infer_blocks(n_cases=n, n_trees=t,
+                                      block_n=block_n).mode
+    before, plans = tree_infer.LAUNCHES, dict(tree_infer.PLANS)
+    got = tree_infer.forest_predict(tab, x, cont, max_depth=depth,
+                                    block_n=block_n)
+    want = ref.forest_predict_ref(tab, x, cont, max_depth=depth)
+    torch.cuda.synchronize()
+    assert tree_infer.LAUNCHES == before + 1
+    assert tree_infer.PLANS == {**plans, mode: plans[mode] + 1}
+    assert got.dtype == torch.int32 and got.shape == (t, n)
+    assert torch.equal(got, want)
+
+
+def _infer_inputs(dev, t, m, a, n, *, shuffle=False):
+    from _forest_tables import random_cases, random_forest_table, \
+        shuffle_node_ids
+    rng = np.random.default_rng(t * m + a)
+    cont = rng.random(a) < 0.5
+    tab, levels = random_forest_table(rng, t, m, cont, n_bins=16,
+                                      max_children=8, leaf_p=0.1)
+    if shuffle:
+        tab = shuffle_node_ids(rng, tab)
+    x = random_cases(rng, n, cont, n_bins=16)
+    tab, x, cont = (torch.as_tensor(v, device=dev) for v in (tab, x, cont))
+    return tab, x, cont, levels
 
 
 @pytest.mark.parametrize("t,m,a,n", INFER_SHAPES)
 @pytest.mark.parametrize("block_n", [None, 32, 1024])
 def test_forest_predict_kernel_matches_plain(dev, t, m, a, n, block_n):
-    from _forest_tables import random_cases, random_forest_table
-    from repro_torch.kernels import ref, tree_infer
-    rng = np.random.default_rng(t * m + a)
-    cont = rng.random(a) < 0.5
-    tab, levels = random_forest_table(rng, t, m, cont, n_bins=16,
-                                      max_children=8, leaf_p=0.1)
-    x = random_cases(rng, n, cont, n_bins=16)
-    tab, x, cont = (torch.as_tensor(v, device=dev) for v in (tab, x, cont))
+    tab, x, cont, levels = _infer_inputs(dev, t, m, a, n)
     for depth in (levels, min(levels, 2)):
-        before = tree_infer.LAUNCHES
-        got = tree_infer.forest_predict(tab, x, cont, max_depth=depth,
-                                        block_n=block_n)
-        want = ref.forest_predict_ref(tab, x, cont, max_depth=depth)
-        torch.cuda.synchronize()
-        assert tree_infer.LAUNCHES == before + 1
-        assert got.dtype == torch.int32 and got.shape == (t, n)
-        assert torch.equal(got, want)
+        _infer_matches_plain(tab, x, cont, depth, block_n)
+
+
+# every block of the plan pinned once, on a breadth-first table and on one
+# with shuffled ids (children contiguous, the low ids not the top levels)
+@pytest.mark.parametrize("shuffle", [False, True])
+@pytest.mark.parametrize("block_n", [32, 64, 128, 256, 512, 1024])
+def test_forest_predict_every_plan_matches_plain(dev, block_n, shuffle):
+    tab, x, cont, levels = _infer_inputs(dev, 5, 3000, 9, 4099,
+                                         shuffle=shuffle)
+    for depth in (levels, 3, 0):
+        _infer_matches_plain(tab, x, cont, depth, block_n)
 
 
 def test_forest_predict_cuda_equals_torch_on_the_card(dev):

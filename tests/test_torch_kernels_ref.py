@@ -183,20 +183,24 @@ def test_forest_predict_ref_leaves_absorb():
 
 
 @pytest.mark.parametrize("n,threads", [(1, 32), (33, 64), (257, 256),
-                                       (10_000_000, 256)])
+                                       (10_000_000, 1024)])
 def test_plan_infer_blocks(n, threads):
-    """256 threads a block, no wider than the cases, in whole warps."""
+    """256 trees: the widest block up to 1,024 cases, no wider than the
+    cases in whole warps, whose grid keeps a block on every SM."""
     from repro_torch.kernels import autotune
-    assert autotune.plan_infer_blocks(n_cases=n).threads == threads
+    plan = autotune.plan_infer_blocks(n_cases=n, n_trees=256)
+    assert plan.threads == threads and plan.tree_blocks == 256
+    assert plan.blocks == 256 * -(-n // threads) >= autotune.H100_SMS
 
 
 def test_plan_infer_blocks_pins_and_refuses():
     from repro_torch.kernels import autotune
-    assert autotune.plan_infer_blocks(n_cases=10, block_n=64).threads == 64
+    shape = dict(n_cases=10, n_trees=1)
+    assert autotune.plan_infer_blocks(**shape, block_n=64).threads == 64
     with pytest.raises(ValueError, match="multiple of 32"):
-        autotune.plan_infer_blocks(n_cases=10, block_n=48)
+        autotune.plan_infer_blocks(**shape, block_n=48)
     with pytest.raises(ValueError, match="multiple of 32"):
-        autotune.plan_infer_blocks(n_cases=10, block_n=2048)
+        autotune.plan_infer_blocks(**shape, block_n=2048)
 
 
 def test_tree_infer_wrapper_refuses_cpu_tensors():
