@@ -22,9 +22,15 @@ Phases (each one that fails ends the run with a non-zero exit):
      stats; all three trees must be equal.
   4. census_pums at scale 1.0 (299,285 cases, 40 attributes): the wide
      discrete-split case, impl="cuda" against impl="torch".
-  5. forest: a 16-tree random forest grown on SyD10M9A as the JAX
-     ensemble trainer grows each member (seed 0, bootstrap, mtry 3, the
-     CUDA build), packed on the card at M = 2^18; the traversal kernel
+  5. forest: a 16-tree random forest on SyD10M9A trained by
+     ensemble.train_forest (seed 0, bootstrap, mtry 3, impl="frontier" on
+     the CUDA kernels, 4 farm workers); the trees must be members 0..15
+     with no quarantine, members 0, 7 and 15 must equal train_tree grown
+     alone, and the histogram and split-gain launches of the training run
+     must equal its supersteps (with live cases, for the histogram).  Its
+     OOB score through the traversal kernel (one launch) must be finite,
+     cover 1 - (1 - 1/e)^16 of the cases and equal the plain traversal's.
+     Then the forest packed on the card at M = 2^18; the traversal kernel
      against its plain version at the full shape (T = 16, N = 10M) with and
      without unknowns, at edge shapes (N = 1, 257, 1024, a lone leaf, a
      census_pums forest with and without unknowns, 70,000 small trees) and
@@ -33,12 +39,14 @@ Phases (each one that fails ends the run with a non-zero exit):
      the 70,000 trees; CUDA events around launches queued behind a spin of
      the card) beside its bound and prints the plan taken; times
      the plain version and predict() end to end (one launch).
-  6. serving: the forest published to a registry under build/, opened by a
-     ModelHandle on the card and served as 65,536 single-row requests by a
-     BatchPredictService over 4 replicas (policy ws, max_batch 1024); every
-     label must equal one batched predict of the same rows, the traversal
-     kernel must have served every batch, and the published arrays' crc32
-     must equal the in-memory forest's.
+  6. serving: the trained forest published by ensemble.publish_forest to a
+     registry under build/ (its manifest must carry the phase-5 OOB score,
+     the tree ids and no quarantine), opened by a ModelHandle on the card
+     and served as 65,536 single-row requests by a BatchPredictService over
+     4 replicas (policy ws, max_batch 1024); every label must equal one
+     batched predict of the same rows, the traversal kernel must have
+     served every batch, and the published arrays' crc32 must equal the
+     trained trees packed in memory.
   7. flash attention: the flash kernels (bf16: the tensor-core wgmma/TMA
      kernel, f32: the scalar one) against their plain version on the card
      at the six FLASH_CASES of the JAX package's tests, at D = 128 and 256
@@ -61,9 +69,21 @@ Phases (each one that fails ends the run with a non-zero exit):
      7,000-token prefill's logits with the kernel must agree with those
      through the plain attention.
 
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.  It imports nothing of JAX or of the JAX
-package: the data generators and the grow configuration are the port's.
+  9. the oracle and the farm under chaos, on census_pums cut to scale 0.1
+     (29,928 cases, 40 attributes, 128 bins; on the full set the oracle
+     alone would outlast the phase's budget, see CHAOS_SCALE): c45.build on the card must equal the impl="cuda"
+     frontier tree of the same data; frontier.build_farm on 4 workers
+     under crash_p 0.2 with worker 1 dead must equal it, with retries, no
+     quarantine and no failure but the injected ones; and train_forest of
+     8 trees under the same chaos must equal train_forest_sequential.
+     Prints each build's wall time.  It runs last, after the LM has freed
+     the card.
+
+Before the kernels' JSON record comes {"ensemble": {...}} (trees/s, the
+OOB score, coverage and time split, the chaos phase's failures and wall
+times); the last line is {"ok": true, "device": {...}}.  It imports
+nothing of JAX or of the JAX package: the data generators and the grow
+configuration (repro_torch.configs.yadt.WORKLOAD.grow) are the port's.
 """
 
 from __future__ import annotations
@@ -80,19 +100,25 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# SyD10M9A (paper Table 1) and the YaDTWorkload grow configuration of
-# src/repro/configs/yadt.py: 10M cases, 256 bins, 2^18 nodes, 256 slots.
+# SyD10M9A (paper Table 1): 10M cases, 256 bins; every build grows with
+# repro_torch.configs.yadt.WORKLOAD.grow (2^18 nodes, 256 slots).
 SYD_CASES = 10_000_000
 SYD_BINS = 256
 SYD_SEED = 0
-GROW = dict(max_nodes=1 << 18, frontier_slots=256)
 CENSUS_SCALE = 1.0
 CENSUS_BINS = 128
-# The forest of phases 5 and 6: the JAX ForestConfig defaults (seed 0,
-# bootstrap, mtry = ceil(sqrt(A))) at 16 trees; 4 trees on census_pums.
+# The forest of phases 5 and 6: the ForestConfig defaults (seed 0,
+# bootstrap, mtry = ceil(sqrt(A))) at 16 trees, trained by the farm's 4
+# workers; members grown alone against it; 4 trees on census_pums.
 FOREST_TREES = 16
 FOREST_SEED = 0
+FOREST_WORKERS = 4
+FOREST_ALONE = (0, 7, 15)
 CENSUS_FOREST_TREES = 4
+# A case is out of bag for a tree with chance (1 - 1/N)^N ~ 1/e, so 16
+# trees cover 1 - (1 - 1/e)^16 of the cases; N = 10M puts the share within
+# a few 1e-6 of it.
+OOB_COVERAGE_TOL = 1e-4
 UNKNOWN_SHARE = 0.05
 SERVE_REQUESTS = 65_536
 SERVE_REPLICAS = 4
@@ -151,6 +177,19 @@ LM_PROMPTS = (7_000, 5_121, 4_096, 3_000, 1_537, 777, 256, 33)
 LM_LOGIT_REL_TOL = 0.05
 LM_LOGIT_ABS_TOL = 0.25
 
+# Phase 9: the c45 oracle and the farm under chaos on census_pums, cut to
+# CHAOS_SCALE of its 299,285 cases (29,928): on the full set the oracle
+# alone takes longer than the 90 s this phase gives it, and the farm build
+# under chaos a few times the oracle (PERF.md section 4, measured by
+# repro_torch.profile_train).  The injector's schedule and the farm's
+# retry policy are the JAX package's chaos tests' (crash_p 0.2, worker 1
+# dead, up to 8 retries).
+CHAOS_SCALE = 0.1
+CHAOS_WORKERS = 4
+CHAOS_FOREST_TREES = 8
+CHAOS_SEED = 7
+CHAOS_FAULT = dict(max_retries=8, seed=3, backoff_base=1e-4)
+
 # Split-gain score tolerance: the discrete branch sums per-bin entropy terms
 # in another order than the torch reduction (f32 rounding, about 1 ulp of
 # values below 6 bits); bins and the -inf pattern must match exactly.
@@ -181,6 +220,16 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _timed(fn):
+    """(fn(), its wall seconds), the card waited for on both sides."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
 
 
 def kernel_ms(fn, key: str, reps: int) -> float:
@@ -431,10 +480,10 @@ def _timed_build(ds, cfg, **kw):
     return tree, time.perf_counter() - t0
 
 
-def grow_both(name, ds, cfg, dev) -> dict:
+def grow_both(name, ds, cfg, dev) -> tuple[dict, object, dict]:
     """Grow with the defaults (CUDA kernels) and with impl="torch" on the
     card; the trees must be equal.  Returns the launch counts of the first
-    build, the main path's run."""
+    build (the main path's run), its tree and what was measured."""
     import numpy as np
     from repro_torch.core import frontier
     from repro_torch.core.tree import predict, trees_equal
@@ -475,7 +524,7 @@ def grow_both(name, ds, cfg, dev) -> dict:
                 predict_s=t_pred, train_accuracy=float(acc),
                 trees_equal=True, launches=launches)
     print(json.dumps(info))
-    return launches
+    return launches, tree, info
 
 
 # --------------------------------------------------------------------------
@@ -504,29 +553,145 @@ def _infer_case(tab, depth, x, cont, what: str) -> None:
           f"{int((got != want).sum())} labels differ")
 
 
-def check_forest(syd, census, cfg, gen, dev) -> tuple[dict, object, dict]:
-    """Phase 5.  Returns (kernel record, the SyD forest, info)."""
+class SuperstepCount:
+    """Counts frontier supersteps, and those with live cases (the ones
+    whose histogram launches), from every thread while installed: wraps
+    ``frontier.superstep``, which ``frontier.build`` looks up each step."""
+
+    def __init__(self):
+        import threading
+        self.steps = 0
+        self._live: list = []
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        from repro_torch.core import frontier
+        self._inner = inner = frontier.superstep
+
+        def counted(*args, **kw):
+            state, stats = inner(*args, **kw)
+            with self._lock:
+                self.steps += 1
+                self._live.append(stats["n_active"] > 0)   # no wait here
+            return state, stats
+        frontier.superstep = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import frontier
+        frontier.superstep = self._inner
+
+    @property
+    def live(self) -> int:
+        import torch
+        return int(torch.stack(self._live).sum()) if self._live else 0
+
+
+def train_syd_forest(syd, cfg, dev):
+    """Phase 5's forest through the trainer: ``train_forest`` on the
+    farm's workers with the CUDA kernels; members grown alone must equal
+    it, and the kernels' launches must be its supersteps'.  Returns
+    (TrainResult, ForestConfig, info)."""
+    import torch
+    from repro_torch.core.tree import trees_equal
+    from repro_torch.ensemble import trainer
+    from repro_torch.kernels import histogram, split_gain
+
+    fc = trainer.ForestConfig(n_trees=FOREST_TREES, seed=FOREST_SEED,
+                              grow=cfg)
+    with SuperstepCount() as steps:
+        histogram.LAUNCHES = split_gain.LAUNCHES = 0
+        (result, train_s) = _timed(lambda: trainer.train_forest(
+            syd, fc, impl="frontier", n_workers=FOREST_WORKERS, device=dev))
+        launches = dict(frontier_histogram=histogram.LAUNCHES,
+                        split_gain=split_gain.LAUNCHES)
+    check(result.tree_ids == list(range(FOREST_TREES))
+          and not result.quarantined,
+          f"trained trees {result.tree_ids}, quarantined "
+          f"{result.quarantined}")
+    check(launches == dict(frontier_histogram=steps.live,
+                           split_gain=steps.steps),
+          f"training launches {launches} != its {steps.steps} supersteps "
+          f"({steps.live} with live cases)")
+    alone_s = {}
+    for tid in FOREST_ALONE:
+        alone, alone_s[tid] = _timed(lambda: trainer.train_tree(
+            syd, fc, tid, impl="frontier", device=dev))
+        check(trees_equal(result.trees[tid], alone),
+              f"forest member {tid} != its build alone")
+    stats = result.stats
+    info = dict(trees=FOREST_TREES, workers=FOREST_WORKERS,
+                train_s=train_s, trees_per_s=FOREST_TREES / train_s,
+                farm_wall_s=stats["wall_s"],
+                worker_tasks=stats["worker_tasks"],
+                worker_busy_s=stats["worker_busy"],
+                supersteps=steps.steps, live_supersteps=steps.live,
+                launches=launches,
+                alone_s={str(k): v for k, v in alone_s.items()},
+                tree_nodes=[t.size for t in result.trees])
+    print(f"train_forest: {FOREST_TREES} trees on {FOREST_WORKERS} workers "
+          f"in {train_s:.3f} s ({info['trees_per_s']:.4f} trees/s), "
+          f"worker tasks {stats['worker_tasks']}; {steps.steps} supersteps "
+          f"({steps.live} live), launches {launches}; members alone, "
+          f"equal: {info['alone_s']} s")
+    print(json.dumps(info))
+    return result, fc, info
+
+
+def score_oob(result, fc, syd, dev) -> dict:
+    """Phase 5's OOB estimate: the traversal kernel, equal to the plain
+    traversal, at the coverage 16 bootstraps give."""
+    import math
+
+    import torch
+    from repro_torch.ensemble import oob
+    from repro_torch.kernels import tree_infer
+
+    split = {}
+    tree_infer.LAUNCHES = 0
+    r, oob_s = _timed(lambda: oob.oob_score(result.trees, syd, fc,
+                                            device=dev, stats_out=split))
+    launches = tree_infer.LAUNCHES
+    check(launches == 1, f"oob_score launched the traversal {launches} "
+          f"times")
+    check(math.isfinite(r.score) and 0 <= r.score <= 1,
+          f"OOB score {r.score}")
+    want_cov = 1 - (1 - math.exp(-1)) ** FOREST_TREES
+    check(abs(r.coverage - want_cov) < OOB_COVERAGE_TOL,
+          f"OOB coverage {r.coverage} vs {want_cov:.6f}")
+    plain, plain_s = _timed(lambda: oob.oob_score(result.trees, syd, fc,
+                                                  impl="torch", device=dev))
+    check(torch.equal(r.pred, plain.pred) and r.score == plain.score,
+          f"OOB with the kernel != with the plain traversal at "
+          f"{int((r.pred != plain.pred).sum())} cases")
+    info = dict(score=r.score, coverage=r.coverage,
+                expected_coverage=want_cov, n_covered=r.n_covered,
+                oob_s=oob_s, plain_oob_s=plain_s, launches=launches,
+                **{f"{k}": v for k, v in split.items()})
+    print(f"oob: score {r.score:.6f}, coverage {r.coverage:.6f} (expected "
+          f"{want_cov:.6f}) in {oob_s:.3f} s: pack {split['pack_s']:.3f}, "
+          f"traversal with the rows' copy {split['predict_s']:.3f}, mask "
+          f"{split['mask_s']:.3f}, vote {split['vote_s']:.3f}; the plain "
+          f"traversal's OOB {plain_s:.3f} s, equal")
+    print(json.dumps({"oob": info}))
+    return info
+
+
+def check_forest(trees, syd, census, cfg, gen, dev
+                 ) -> tuple[dict, object, dict]:
+    """Phase 5's traversal checks on the trained forest.  Returns
+    (kernel record, the SyD forest, info)."""
     import dataclasses
 
     import torch
     from repro_torch.core.tree import Tree
     from repro_torch.infer import forest as F
-    from repro_torch.kernels import autotune, histogram, ref, split_gain, \
-        tree_infer
+    from repro_torch.kernels import autotune, ref, tree_infer
     # the many-trees case: SMALL_TREES random small trees, more than the
     # 65,535 of a grid's y extent
     from repro_torch.profile_infer import SMALL_SEED, SMALL_TREES, \
         device_ms, grow_forest, small_trees, traversal_bound
 
-    histogram.LAUNCHES = split_gain.LAUNCHES = 0
-    t0 = time.perf_counter()
-    trees = grow_forest(syd, cfg, FOREST_TREES)
-    torch.cuda.synchronize()
-    grow_s = time.perf_counter() - t0
-    grow_launches = dict(frontier_histogram=histogram.LAUNCHES,
-                         split_gain=split_gain.LAUNCHES)
-    check(min(grow_launches.values()) > 0,
-          f"forest build launched no kernel: {grow_launches}")
     fo = F.Forest.pack(trees, capacity=cfg.max_nodes, device=dev)
     t_dim, m_dim = fo.n_trees, fo.capacity
     check((t_dim, m_dim) == (FOREST_TREES, cfg.max_nodes),
@@ -637,8 +802,7 @@ def check_forest(syd, census, cfg, gen, dev) -> tuple[dict, object, dict]:
         regimes=regimes)
     info = dict(forest_trees=t_dim, capacity=m_dim, n_levels=depth,
                 descent_steps=full["steps"],
-                tree_nodes=[t.size for t in trees], grow_s=grow_s,
-                grow_launches=grow_launches, predict_s=predict_s,
+                tree_nodes=[t.size for t in trees], predict_s=predict_s,
                 predict_launches=predict_launches,
                 forest_batch_ms=serving["kernel_ms"],
                 train_accuracy=acc, census_trees=c_fo.n_trees,
@@ -656,9 +820,11 @@ def _crc(arr) -> int:
     return zlib.crc32(np.ascontiguousarray(arr).tobytes())
 
 
-def serve(fo, syd, dev) -> dict:
-    """Publish -> ModelHandle -> BatchPredictService -> forest_predict."""
+def serve(fo, result, syd, oob_info, dev) -> dict:
+    """publish_forest -> ModelHandle -> BatchPredictService ->
+    forest_predict."""
     import numpy as np
+    from repro_torch.ensemble import publish
     from repro_torch.infer import forest as F
     from repro_torch.infer import registry
     from repro_torch.infer.service import (BatchPredictService,
@@ -670,10 +836,21 @@ def serve(fo, syd, dev) -> dict:
     build.mkdir(exist_ok=True)
     root = tempfile.mkdtemp(prefix="smoke_registry.", dir=build)
     try:
-        path = registry.publish(root, "syd16", fo,
-                                metadata={"seed": FOREST_SEED,
-                                          "n_trees": FOREST_TREES})
-        handle = registry.ModelHandle(root, "syd16")
+        tree_infer.LAUNCHES = 0
+        path, publish_s = _timed(lambda: publish.publish_forest(
+            root, "syd", result, syd, device=dev))
+        publish_launches = tree_infer.LAUNCHES
+        meta = registry.manifest_of(path)["metadata"]
+        check(meta.get("oob_score") == oob_info["score"]
+              and meta.get("oob_coverage") == oob_info["coverage"]
+              and meta.get("tree_ids") == result.tree_ids
+              and meta.get("quarantined") == [],
+              f"published metadata {meta} != the trained forest's")
+        check(publish_launches == 1, f"publish_forest's OOB launched the "
+              f"traversal {publish_launches} times")
+        handle = registry.ModelHandle(root, "syd", device=dev)
+        check(handle.stable_path == path,
+              f"the handle serves {handle.stable_path}, not {path}")
         check(handle.stable.device.type == "cuda",
               f"the handle's forest is on {handle.stable.device}")
         rows = syd.x[:SERVE_REQUESTS]
@@ -704,9 +881,11 @@ def serve(fo, syd, dev) -> dict:
             "infer_replica_batches_total"]["series"]))
         check(launches > 0 and launches == batches,
               f"{launches} traversal launches for {batches} batches")
-        # the published version reads back bit for bit
+        # the published version reads back bit for bit, the trained trees
+        # packed as publish_forest packs them
         loaded, manifest = registry.load(path)
-        for name, arr in fo.to_numpy().items():
+        packed = F.Forest.pack(result.trees, device=dev)
+        for name, arr in packed.to_numpy().items():
             crc = _crc(arr)
             check(crc == manifest["arrays"][name]["crc32"]
                   and crc == _crc(loaded.to_numpy()[name]),
@@ -715,7 +894,8 @@ def serve(fo, syd, dev) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     info = dict(requests=SERVE_REQUESTS, replicas=SERVE_REPLICAS,
-                max_batch=SERVE_MAX_BATCH, serve_s=serve_s,
+                max_batch=SERVE_MAX_BATCH, publish_s=publish_s,
+                publish_launches=publish_launches, serve_s=serve_s,
                 requests_per_s=SERVE_REQUESTS / serve_s, batches=batches,
                 tree_infer_launches=launches, stats=service.stats())
     print(f"serve: {SERVE_REQUESTS} requests in {serve_s:.3f} s "
@@ -839,15 +1019,6 @@ def check_flash(gen, dev) -> dict:
 # phase 8: gemma2_9b serving at full width and depth
 # --------------------------------------------------------------------------
 
-def _timed(fn):
-    import torch
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
-
-
 def serve_lm(dev) -> dict:
     """Phase 8.  Returns what it measured, the flash launches included."""
     import numpy as np
@@ -966,11 +1137,89 @@ def serve_lm(dev) -> dict:
     return info
 
 
+# --------------------------------------------------------------------------
+# phase 9: the c45 oracle and the farm under chaos
+# --------------------------------------------------------------------------
+
+def _chaos(key_fn):
+    """The JAX package's chaos: crash_p 0.2, worker 1 dead from its first
+    task, and the farm's retry policy for it."""
+    from repro_torch.core import faults
+    from repro_torch.core.farm import FaultPolicy
+    inj = faults.FaultInjector(seed=CHAOS_SEED, spec=faults.FaultSpec(
+        crash_p=0.2, dead_workers=frozenset({1})), key_fn=key_fn)
+    return inj, FaultPolicy(**CHAOS_FAULT)
+
+
+def _check_chaos(what, stats, inj) -> dict:
+    """Retries ran, nothing was quarantined, worker 1 died, and only the
+    injected faults failed: the log's crashes plus the one attempt the
+    dead worker took down."""
+    crashes = sum(1 for _, _, action in inj.log if action == "crash")
+    check(stats["failures"] > 0 and stats["retries"] > 0
+          and stats["quarantined"] == 0 and stats["dead_workers"] == [1],
+          f"{what}: farm stats {stats}")
+    check(stats["failures"] == crashes + 1,
+          f"{what}: {stats['failures']} failures, {crashes} injected "
+          f"crashes and one dead worker")
+    return {k: stats[k] for k in ("failures", "retries", "requeues",
+                                  "timeouts", "quarantined",
+                                  "dead_workers", "worker_tasks")}
+
+
+def oracle_and_chaos(ds, frontier_tree, cfg, dev) -> dict:
+    """Phase 9: the sequential oracle on the card equals the CUDA frontier
+    tree; the farm build and a farm-trained forest under chaos equal the
+    oracle and the sequential trainer."""
+    from repro_torch.core import c45, frontier
+    from repro_torch.core.tree import trees_equal
+    from repro_torch.ensemble import trainer
+
+    if frontier_tree is None:
+        frontier_tree = frontier.build(ds, cfg, device=dev)
+    oracle, c45_s = _timed(lambda: c45.build(ds, cfg, device=dev))
+    check(trees_equal(oracle, frontier_tree),
+          f"c45 on the card ({oracle.size} nodes) != the impl='cuda' "
+          f"frontier tree ({frontier_tree.size} nodes)")
+    print(f"c45: {ds.n_cases} cases, {oracle.size} nodes in {c45_s:.3f} s "
+          f"on the card, equal to the CUDA frontier tree")
+
+    inj, fault = _chaos(lambda t: t.node_id)
+    stats = {}
+    farm_tree, farm_s = _timed(lambda: frontier.build_farm(
+        ds, cfg, n_workers=CHAOS_WORKERS, injector=inj, fault=fault,
+        stats_out=stats, device=dev))
+    check(trees_equal(farm_tree, oracle), "the farm build under chaos != "
+          "the c45 oracle")
+    farm = _check_chaos("build_farm", stats, inj)
+    print(f"build_farm: {CHAOS_WORKERS} workers under chaos in {farm_s:.3f}"
+          f" s, equal to c45; {farm}")
+
+    fc = trainer.ForestConfig(n_trees=CHAOS_FOREST_TREES, seed=0, grow=cfg)
+    inj, fault = _chaos(lambda tid: tid)
+    fstats = {}
+    res, forest_s = _timed(lambda: trainer.train_forest(
+        ds, fc, impl="frontier", n_workers=CHAOS_WORKERS, injector=inj,
+        fault=fault, stats_out=fstats, device=dev))
+    seq, seq_s = _timed(lambda: trainer.train_forest_sequential(
+        ds, fc, impl="frontier", device=dev))
+    check(res.tree_ids == list(range(CHAOS_FOREST_TREES))
+          and all(trees_equal(a, b) for a, b in zip(res.trees, seq)),
+          "the forest trained under chaos != train_forest_sequential")
+    forest = _check_chaos("train_forest", fstats, inj)
+    print(f"train_forest: {CHAOS_FOREST_TREES} trees under chaos in "
+          f"{forest_s:.3f} s, sequentially {seq_s:.3f} s, equal; {forest}")
+    return dict(cases=ds.n_cases, attrs=ds.n_attrs, c45_nodes=oracle.size,
+                c45_s=c45_s, farm_build_s=farm_s, farm_build=farm,
+                chaos_forest_s=forest_s, sequential_forest_s=seq_s,
+                chaos_forest=forest)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         raise SmokeError("CUDA is not available: this smoke run needs a GPU")
-    from repro_torch.core.config import GrowConfig
+    from repro_torch.configs.yadt import WORKLOAD
     from repro_torch.data import datasets, quest
     from repro_torch.kernels import _build
 
@@ -1013,21 +1262,19 @@ def main() -> int:
     nb = torch.as_tensor(syd.n_bins, dtype=torch.int32).to(dev)
     t0 = time.perf_counter()
     hist_rec, sub_hist = check_histogram(
-        x, y, w, syd.max_bins, syd.n_classes, GROW["frontier_slots"], gen,
-        dev)
+        x, y, w, syd.max_bins, syd.n_classes, WORKLOAD.grow.frontier_slots,
+        gen, dev)
     gain_rec = check_split_gain(sub_hist, cont, nb, syd.max_bins, gen, dev)
     torch.cuda.synchronize()
     times["kernel_checks_s"] = time.perf_counter() - t0
     del x, y, w, sub_hist
     torch.cuda.empty_cache()
 
-    # ---- 3. SyD10M9A, the main path
-    cfg = GrowConfig(**GROW)
+    # ---- 3. SyD10M9A, the build path
+    cfg = WORKLOAD.grow
     t0 = time.perf_counter()
-    launches = grow_both("syd10m9a", syd, cfg, dev)
+    build_launches, _, _ = grow_both("syd10m9a", syd, cfg, dev)
     times["syd_builds_s"] = time.perf_counter() - t0
-    hist_rec["launches"] = launches["frontier_histogram"]
-    gain_rec["launches"] = launches["split_gain"]
 
     # ---- 4. census_pums: wide discrete splits
     t0 = time.perf_counter()
@@ -1035,24 +1282,42 @@ def main() -> int:
                            max_bins=CENSUS_BINS)
     times["census_generate_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    grow_both("census_pums", census, cfg, dev)
+    _, census_tree, census_info = grow_both("census_pums", census, cfg, dev)
     times["census_builds_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
-    # ---- 5. the packed forest and the traversal kernel
+    # ---- 5. the forest from the trainer, its OOB score, the traversal
     t0 = time.perf_counter()
-    infer_rec, forest, _ = check_forest(syd, census, cfg, gen, dev)
+    result, fc, trained = train_syd_forest(syd, cfg, dev)
+    times["train_forest_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    oob_info = score_oob(result, fc, syd, dev)
+    times["oob_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    infer_rec, forest, _ = check_forest(result.trees, syd, census, cfg, gen,
+                                        dev)
     times["forest_s"] = time.perf_counter() - t0
-    del census
     torch.cuda.empty_cache()
 
-    # ---- 6. the serving path
+    # ---- 6. the serving path: publish_forest -> registry -> service
     t0 = time.perf_counter()
-    served = serve(forest, syd, dev)
+    served = serve(forest, result, syd, oob_info, dev)
     times["serve_s"] = time.perf_counter() - t0
-    infer_rec["launches"] = served["tree_infer_launches"]
 
-    del forest, syd
+    # the training path's launches (phase 5), and each path's
+    hist_rec["launches"] = trained["launches"]["frontier_histogram"]
+    gain_rec["launches"] = trained["launches"]["split_gain"]
+    for rec, key in ((hist_rec, "frontier_histogram"),
+                     (gain_rec, "split_gain")):
+        rec["launches_by_path"] = dict(build=build_launches[key],
+                                       train_forest=trained["launches"][key])
+    infer_rec["launches"] = served["tree_infer_launches"]
+    infer_rec["launches_by_path"] = dict(
+        oob_score=oob_info["launches"],
+        publish_forest=served["publish_launches"],
+        serve=served["tree_infer_launches"])
+
+    del forest, syd, result
     torch.cuda.empty_cache()
 
     # ---- 7. the flash kernel against its plain version
@@ -1066,6 +1331,27 @@ def main() -> int:
     times["lm_serve_s"] = time.perf_counter() - t0
     flash_rec["launches"] = lm["flash_launches"]
 
+    # ---- 9. the c45 oracle and the farm under chaos (census_pums)
+    t0 = time.perf_counter()
+    if CHAOS_SCALE != CENSUS_SCALE:
+        census = datasets.load("census_pums", scale=CHAOS_SCALE,
+                               max_bins=CENSUS_BINS)
+        census_tree = None          # phase 4 grew the full set
+    elif census_info["overflow"]:
+        raise SmokeError("census_pums overflowed max_nodes in phase 4: the "
+                         "c45 oracle grows freely, so the trees cannot "
+                         "compare; cut CHAOS_SCALE")
+    chaos = oracle_and_chaos(census, census_tree, cfg, dev)
+    times["chaos_s"] = time.perf_counter() - t0
+
+    print(json.dumps({"ensemble": dict(
+        trees=FOREST_TREES, workers=FOREST_WORKERS,
+        trees_per_s=trained["trees_per_s"], train_s=trained["train_s"],
+        worker_tasks=trained["worker_tasks"],
+        oob_score=oob_info["score"], oob_coverage=oob_info["coverage"],
+        oob_s=oob_info["oob_s"], **{f"oob_{k}": oob_info[k] for k in (
+            "pack_s", "predict_s", "mask_s", "vote_s")},
+        chaos=chaos)}))
     print(json.dumps({"phase_seconds": times}))
     print(json.dumps({"kernels": [hist_rec, gain_rec, infer_rec,
                                   flash_rec]}))

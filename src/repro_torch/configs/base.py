@@ -3,8 +3,9 @@
 
 ``ModelConfig``, ``ShapeSpec``, ``SHAPES`` and ``reduced()`` are verbatim
 copies of ``repro.configs.base``.  Only the architectures whose every block
-kind is ported have a config here (:data:`ARCH_IDS`); any other name
-raises, naming the ROADMAP item that ports it.
+kind is ported have a config here (:data:`ARCH_IDS`, the LMs, and
+``yadt``, the tree workload); any other name raises, naming the ROADMAP
+item that ports it.
 """
 
 from __future__ import annotations
@@ -19,10 +20,12 @@ JAX_ARCH_IDS = (
     "gemma3_4b", "gemma2_9b", "yi_6b", "musicgen_medium", "recurrentgemma_2b",
     "yadt",
 )
-#: The ported ones: global/local attention with a dense MLP.
+#: The ported LMs: global/local attention with a dense MLP.
 ARCH_IDS = ("gemma2_9b", "yi_6b")
-NOT_PORTED = ("ROADMAP.md 'Next' item 3 (the other architectures and block "
-              "kinds: MoE, RWKV, RG-LRU, frontends)")
+#: The ported tree workload (``configs/yadt.py``), no LM.
+TREE_ARCH_IDS = ("yadt",)
+NOT_PORTED = ("ROADMAP.md, the other architectures and block kinds (MoE, "
+              "RWKV, RG-LRU, frontends)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,11 +117,12 @@ SHAPES: dict[str, ShapeSpec] = {
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch not in ARCH_IDS:
+    if arch not in ARCH_IDS + TREE_ARCH_IDS:
         known = "an architecture of the JAX package" if arch in JAX_ARCH_IDS \
             else "not an architecture of the repo"
         raise ValueError(f"--arch {arch!r} is not ported ({known}); ported: "
-                         f"{', '.join(ARCH_IDS)}; see {NOT_PORTED}")
+                         f"{', '.join(ARCH_IDS + TREE_ARCH_IDS)}; see "
+                         f"{NOT_PORTED}")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.CONFIG
 

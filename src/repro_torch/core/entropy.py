@@ -14,7 +14,9 @@ the known fraction ``F = W_known / W_total``.
 
 All functions are float32 and batched: leading dimensions are arbitrary.
 Sums over the class axis add in ascending class order (the kernel's
-order); sums over bins use ``torch.sum``.
+order); sums over bins use ``torch.sum``.  The prefix sum over bins adds in
+the JAX package's order on the CPU (:func:`prefix_sum`), so weights that
+are not integers split on the same thresholds in both packages.
 """
 
 from __future__ import annotations
@@ -47,6 +49,41 @@ def _sum_ascending(t: torch.Tensor, dim: int = -1) -> torch.Tensor:
     for p in parts[1:]:
         out = out + p
     return out
+
+
+# Elements a block of the prefix sum's first level (see prefix_sum).
+PREFIX_BLOCK = 16
+
+
+def prefix_sum(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inclusive prefix sum along ``dim`` in float32, adding in the order
+    of ``jnp.cumsum`` on the CPU (XLA's rewrite of a cumulative
+    reduce-window): sequentially inside blocks of PREFIX_BLOCK elements,
+    then each block offset by the sum, in the same scheme, of the blocks'
+    totals before it.  ``torch.cumsum`` adds in an order of its own (in
+    float64 on the CPU), which rounds apart wherever the weights are not
+    integers.
+    """
+    x = t.movedim(dim, 0)
+    b = x.shape[0]
+    if b == 0:
+        return t.clone()
+    n_blocks = -(-b // PREFIX_BLOCK)
+    pad = n_blocks * PREFIX_BLOCK - b
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+    x = x.reshape((n_blocks, PREFIX_BLOCK) + x.shape[1:])
+    acc = x[:, 0]
+    parts = [acc]
+    for i in range(1, PREFIX_BLOCK):
+        acc = acc + x[:, i]
+        parts.append(acc)
+    out = torch.stack(parts, 1)
+    if n_blocks > 1:
+        before = prefix_sum(acc, 0)
+        out = out + torch.cat([torch.zeros_like(before[:1]),
+                               before[:-1]])[:, None]
+    return out.reshape((-1,) + out.shape[2:])[:b].movedim(0, dim)
 
 
 def _xlogx(p: torch.Tensor) -> torch.Tensor:
@@ -158,7 +195,7 @@ def gains_for_continuous(hist: torch.Tensor, *, total_w: torch.Tensor,
     int32, the first maximum.
     """
     hist = _f32(hist)
-    left = torch.cumsum(hist, dim=-2)
+    left = prefix_sum(hist, dim=-2)
     known = left[..., -1, :]
     right = known[..., None, :] - left
 

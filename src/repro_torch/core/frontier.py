@@ -367,3 +367,17 @@ def build(ds: BinnedDataset, cfg: GrowConfig = GrowConfig(), *,
                    for f in dataclasses.fields(Tree) if f.name != "n_nodes"},
                 n_nodes=state.n_nodes)
     return (tree, rows) if collect_stats else tree
+
+
+def build_farm(ds: BinnedDataset, cfg: GrowConfig = GrowConfig(), **kw):
+    """Grow the same tree through the supervised *threaded* farm.
+
+    The host-side, fault-tolerant counterpart of :func:`build`: workers may
+    crash, hang past ``FaultPolicy.task_deadline`` or die permanently and
+    the result is still elementwise-equal to the oracle (and hence to the
+    frontier engine).  See :func:`repro_torch.core.farm_build.build` for
+    the keyword surface (``n_workers``, ``fault``, ``injector``, ``policy``,
+    ``device``, ...).
+    """
+    from repro_torch.core import farm_build
+    return farm_build.build(ds, cfg, **kw)

@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles, on its own,
 into ``build/kernels/lib<name>-<hash>.so`` at the root of the checkout; the
 hash covers the source and the flags, so an edited source builds anew and an
 unchanged one is reused.  Nothing includes PyTorch's headers, so a build
-takes seconds.  The kernels are built at first use, never at import.
+takes seconds.  The kernels are built at first use, never at import,
+and once a process: a lock makes threads that reach a kernel together wait
+for one build and one load.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 KERNELS = ("histogram", "split_gain", "tree_infer", "flash_attention")
@@ -37,6 +40,8 @@ def nvcc_flags(name: str) -> tuple[str, ...]:
     return NVCC_FLAGS
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# Held by build() and by library()'s first load of a kernel.
+_LOCK = threading.RLock()
 
 
 def nvcc() -> str:
@@ -59,6 +64,11 @@ def build(names=KERNELS) -> dict[str, str]:
     """Compile every missing library of ``names`` with one nvcc each, all
     started together.  Returns nvcc's output per built kernel (ptxas
     register and shared-memory report); raises with it on a failure."""
+    with _LOCK:
+        return _compile(names)
+
+
+def _compile(names) -> dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = [n for n in names if not library_path(n).exists()]
     procs = {}
@@ -87,9 +97,13 @@ def build(names=KERNELS) -> dict[str, str]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if missing."""
     lib = _LIBS.get(name)
-    if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            build((name,))
-        lib = _LIBS[name] = ctypes.CDLL(str(path))
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                build((name,))
+            lib = _LIBS[name] = ctypes.CDLL(str(path))
     return lib

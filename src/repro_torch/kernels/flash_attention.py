@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -30,6 +31,12 @@ from repro_torch.kernels import _build
 # all of them, and by dtype (bfloat16: tensor-core kernel, float32: scalar).
 LAUNCHES = 0
 LAUNCHES_BY_DTYPE = {"bfloat16": 0, "float32": 0}
+# Launches from several threads: _LAUNCH_LOCK makes each kernel's
+# shared-memory opt-in (set before every launch) and its launch one step, so
+# another thread's lower opt-in cannot land between them; _COUNT_LOCK keeps
+# the counts exact.
+_LAUNCH_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
@@ -176,6 +183,14 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{softcap}")
 
 
+def _count(dtype: str) -> None:
+    """Count one launch of the ``dtype`` kernel."""
+    global LAUNCHES
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+        LAUNCHES_BY_DTYPE[dtype] += 1
+
+
 def _u64(values) -> ctypes.Array:
     return (ctypes.c_uint64 * len(values))(*values)
 
@@ -189,7 +204,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     k and v are made contiguous if they are not (a copy); the scaled q is a
     new tensor.  Nothing is transposed: the kernels read the JAX layout.
     """
-    global LAUNCHES
     check_shapes(q, k, v, window=window, softcap=softcap)
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
@@ -207,8 +221,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(qs)
     if b == 0 or sq == 0:
         return out
-    lib = _lib()
-    with torch.cuda.device(dev):
+    with _LAUNCH_LOCK, torch.cuda.device(dev):
+        lib = _lib()
         stream = torch.cuda.current_stream(dev).cuda_stream
         ptrs = (qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
         if bf16:
@@ -226,6 +240,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err:
         raise RuntimeError("flash_attention launch failed: "
                            + lib.flash_attention_error(err).decode())
-    LAUNCHES += 1
-    LAUNCHES_BY_DTYPE["bfloat16" if bf16 else "float32"] += 1
+    _count("bfloat16" if bf16 else "float32")
     return out

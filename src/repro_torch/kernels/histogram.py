@@ -9,6 +9,7 @@ is :func:`repro_torch.kernels.ref.frontier_histogram_ref`.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -18,6 +19,12 @@ from repro_torch.kernels import _build, autotune
 LAUNCHES = 0
 # Launches by plan ("direct", "shared"): which accumulation path ran.
 PLANS = {"direct": 0, "shared": 0}
+# The farm's workers launch from several threads at once.  _LAUNCH_LOCK
+# makes the kernel's shared-memory opt-in (a static of the C side) and its
+# launch one step, so no launch runs under another thread's lower opt-in;
+# _COUNT_LOCK keeps the counts exact.
+_LAUNCH_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,6 +38,14 @@ def _lib() -> ctypes.CDLL:
     lib.frontier_histogram_error.argtypes = [ctypes.c_int]
     lib.frontier_histogram_error.restype = ctypes.c_char_p
     return lib
+
+
+def _count(mode: str) -> None:
+    """Count one launch of plan ``mode``."""
+    global LAUNCHES
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+        PLANS[mode] += 1
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -58,7 +73,6 @@ def frontier_histogram(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     hint, not a filter: a case of a higher slot is counted all the same.
     ``block_t`` / ``block_k`` pin the plan (see ``autotune.plan_histogram``).
     """
-    global LAUNCHES
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA histogram takes CUDA tensors, got {dev}")
@@ -77,8 +91,8 @@ def frontier_histogram(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
         n_cases=n, n_slots=n_slots, n_bins=n_bins, n_classes=n_classes,
         n_attrs=a_dim, n_live_slots=n_live_slots, block_t=block_t,
         block_k=block_k)
-    lib = _lib()
-    with torch.cuda.device(dev):
+    with _LAUNCH_LOCK, torch.cuda.device(dev):
+        lib = _lib()
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.frontier_histogram_launch(
             x.data_ptr(), y.data_ptr(), w.data_ptr(), slot.data_ptr(),
@@ -88,6 +102,5 @@ def frontier_histogram(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     if err:
         raise RuntimeError("frontier_histogram launch failed: "
                            + lib.frontier_histogram_error(err).decode())
-    LAUNCHES += 1
-    PLANS[plan.mode] += 1
+    _count(plan.mode)
     return out

@@ -9,6 +9,7 @@ the plain version is :func:`repro_torch.kernels.ref.split_gain_ref`.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -16,6 +17,12 @@ from repro_torch.kernels import _build, autotune
 
 # Launches of the kernel in this process (the main path's proof of use).
 LAUNCHES = 0
+# The farm's workers launch from several threads at once.  _LAUNCH_LOCK
+# makes the kernel's shared-memory opt-in (a static of the C side) and its
+# launch one step, so no launch runs under another thread's lower opt-in;
+# _COUNT_LOCK keeps the counts exact.
+_LAUNCH_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,6 +40,13 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _count() -> None:
+    """Count one launch."""
+    global LAUNCHES
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+
+
 def split_gain(hist: torch.Tensor, total_w: torch.Tensor,
                attr_is_cont: torch.Tensor, n_bins: torch.Tensor, *,
                min_objs: float = 2.0, criterion: str = "gain",
@@ -45,7 +59,6 @@ def split_gain(hist: torch.Tensor, total_w: torch.Tensor,
     ``hist`` may be a view whose last two axes are contiguous, such as the
     first B bins of the histogram kernel's (K, A, B+1, C) output.
     """
-    global LAUNCHES
     dev = hist.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA split gain takes CUDA tensors, got {dev}")
@@ -74,8 +87,8 @@ def split_gain(hist: torch.Tensor, total_w: torch.Tensor,
         raise ValueError(f"hist needs B >= 1 and C >= 1, got {b_dim}, {c_dim}")
     plan = autotune.plan_split_gain(n_bins=b_dim, n_classes=c_dim,
                                     block_b=block_b)
-    lib = _lib()
-    with torch.cuda.device(dev):
+    with _LAUNCH_LOCK, torch.cuda.device(dev):
+        lib = _lib()
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.split_gain_launch(
             hist.data_ptr(), hist.stride(0), hist.stride(1),
@@ -86,5 +99,5 @@ def split_gain(hist: torch.Tensor, total_w: torch.Tensor,
     if err:
         raise RuntimeError("split_gain launch failed: "
                            + lib.split_gain_error(err).decode())
-    LAUNCHES += 1
+    _count()
     return score, split_bin

@@ -10,6 +10,7 @@ tensors only; the plain version is
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -24,6 +25,8 @@ NODE_COLS = 8          # 6 live columns padded to 8: two int4 loads a row
 # a small batch on every SM).
 LAUNCHES = 0
 PLANS = {"wide": 0, "spread": 0}
+# exact under launches from several threads
+_COUNT_LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
@@ -40,6 +43,14 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _count(mode: str) -> None:
+    """Count one launch of plan ``mode``."""
+    global LAUNCHES
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+        PLANS[mode] += 1
+
+
 def forest_predict(node_tab: torch.Tensor, x_bins: torch.Tensor,
                    attr_is_cont: torch.Tensor, *, max_depth: int,
                    block_n: int | None = None) -> torch.Tensor:
@@ -49,7 +60,6 @@ def forest_predict(node_tab: torch.Tensor, x_bins: torch.Tensor,
 
     ``block_n`` pins the cases (threads) a block (None: the autotune plan).
     """
-    global LAUNCHES
     dev = node_tab.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA forest traversal takes CUDA tensors, "
@@ -90,6 +100,5 @@ def forest_predict(node_tab: torch.Tensor, x_bins: torch.Tensor,
     if err:
         raise RuntimeError("forest_predict launch failed: "
                            + lib.forest_predict_error(err).decode())
-    LAUNCHES += 1
-    PLANS[plan.mode] += 1
+    _count(plan.mode)
     return out

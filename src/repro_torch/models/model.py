@@ -2,8 +2,8 @@
 decode_step / init_cache.
 
 The port of ``repro.models.model`` for serving.  Training (``loss_fn`` and
-the chunked cross-entropy) comes with a later slice (ROADMAP 'Next' item
-1); ``frontends`` is not needed by the ported architectures.
+the chunked cross-entropy) comes with the LM training path (ROADMAP);
+``frontends`` is not needed by the ported architectures.
 """
 
 from __future__ import annotations

@@ -7,9 +7,10 @@ The second form profiles the port of another checkout (an earlier commit
 unpacked with ``git archive``) and this one in turns, against, this, this,
 against, each in a process of its own, so that the two compare on one card.
 
-Grows the SyD10M9A tree (10,000,000 cases, seed 0, 256 bins; the
-YaDTWorkload grow configuration of ``src/repro/configs/yadt.py``, the same
-as ``chip_smoke.py``) once unprofiled, for the build's wall time, and once
+Grows the SyD10M9A tree (10,000,000 cases, seed 0, 256 bins; the grow
+configuration ``repro_torch.configs.yadt.WORKLOAD.grow``, the same as
+``chip_smoke.py``'s; a profile of another checkout gets this checkout's)
+once unprofiled, for the build's wall time, and once
 under ``torch.profiler`` with device activity only.  Prints one JSON object:
 both wall times, the device's busy time and idle share of the profiled
 build, the device time of the costliest kernels, and for each splitAtt
@@ -27,13 +28,13 @@ An earlier port reports no launches by plan and no library time.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import time
 
 SYD_CASES = 10_000_000
 SYD_BINS = 256
 SYD_SEED = 0
-GROW = dict(max_nodes=1 << 18, frontier_slots=256)
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): memory, and the
 # CUDA cores' f32 rate
 HBM_BYTES_PER_S = 3.35e12
@@ -232,10 +233,14 @@ def compare(against: str) -> int:
     import sys
     from pathlib import Path
 
+    from repro_torch.configs.yadt import WORKLOAD
+
     here = str(Path(__file__).resolve().parents[1])
+    grow = json.dumps(dataclasses.asdict(WORKLOAD.grow))
     for label, src in (("against", against), ("this", here),
                        ("this", here), ("against", against)):
-        out = subprocess.run([sys.executable, __file__, "--src", src],
+        out = subprocess.run([sys.executable, __file__, "--src", src,
+                              "--grow", grow],
                              capture_output=True, text=True, check=True)
         line = json.loads(out.stdout.strip().splitlines()[-1])
         print(json.dumps({"run": label, "src": src, **line}), flush=True)
@@ -252,6 +257,9 @@ def main(argv=None) -> int:
                     "directory (run this file by its path for it)")
     ap.add_argument("--against", help="the src directory of another "
                     "checkout: profile it and this one in turns")
+    ap.add_argument("--grow", help="the grow configuration's fields as "
+                    "JSON (default: repro_torch.configs.yadt.WORKLOAD.grow; "
+                    "a profile of another checkout gets this one's)")
     args = ap.parse_args(argv)
     if args.against:
         return compare(args.against)
@@ -262,6 +270,13 @@ def main(argv=None) -> int:
 
     from repro_torch.core.config import GrowConfig
     from repro_torch.data import quest
+    if args.grow:       # the fields this checkout's GrowConfig knows
+        known = {f.name for f in dataclasses.fields(GrowConfig)}
+        cfg = GrowConfig(**{k: v for k, v in json.loads(args.grow).items()
+                            if k in known})
+    else:
+        from repro_torch.configs.yadt import WORKLOAD
+        cfg = WORKLOAD.grow
 
     if not torch.cuda.is_available():
         raise SystemExit("CUDA is not available: the profile needs a GPU")
@@ -270,7 +285,7 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     syd = quest.syd(SYD_CASES, seed=SYD_SEED, max_bins=SYD_BINS)
-    out = profile(syd, GrowConfig(**GROW))
+    out = profile(syd, cfg)
     print(json.dumps({"card": card, "profile": out}))
     return 0
 

@@ -5,8 +5,9 @@
     PYTHONPATH=src python3 -m repro_torch.profile_infer --variants
 
 Grows the forest of ``chip_smoke.py``'s phase 5 once (16 members on
-SyD10M9A, 10,000,000 cases, as the JAX ensemble trainer grows them, packed
-at M = 2^18) and a 4-tree census_pums forest (A = 40), and saves both with
+SyD10M9A, 10,000,000 cases, through the ensemble trainer's sequential
+per-tree oracle, packed at M = 2^18) and a 4-tree census_pums forest
+(A = 40), and saves both with
 their cases under ``build/profile_infer/``.  Then, in a process of its own
 for each port profiled (with ``--against``, the port of another checkout
 and this one in turns: against, this, this, against, on one card), it
@@ -35,7 +36,6 @@ from pathlib import Path
 SYD_CASES = 10_000_000
 SYD_BINS = 256
 SYD_SEED = 0
-GROW = dict(max_nodes=1 << 18, frontier_slots=256)
 CENSUS_SCALE = 1.0
 CENSUS_BINS = 128
 FOREST_TREES = 16
@@ -63,18 +63,12 @@ SPIN_CYCLES_PER_CALL = 400_000
 
 
 def grow_forest(ds, cfg, n_trees):
-    """Forest members as the JAX trainer's per-tree task grows them:
-    ``frontier.build(ds, grow, attr_mask=s.attr_mask, case_w=s.case_w)``
-    with ``s = sampling.draw(seed, tree_id, ...)`` (the CUDA build)."""
-    from repro_torch.core import frontier
-    from repro_torch.ensemble import sampling
-    trees = []
-    for t in range(n_trees):
-        s = sampling.draw(FOREST_SEED, t, n_cases=ds.n_cases,
-                          n_attrs=ds.n_attrs, base_w=ds.w)
-        trees.append(frontier.build(ds, cfg, attr_mask=s.attr_mask,
-                                    case_w=s.case_w))
-    return trees
+    """The trainer's sequential per-tree oracle: ``n_trees`` members
+    (seed FOREST_SEED, bootstrap, mtry ceil(sqrt(A)), grow ``cfg``), each
+    through the frontier build with the CUDA kernels."""
+    from repro_torch.ensemble import trainer
+    fc = trainer.ForestConfig(n_trees=n_trees, seed=FOREST_SEED, grow=cfg)
+    return trainer.train_forest_sequential(ds, fc, impl="frontier")
 
 
 def small_trees(n_trees: int, n_attrs: int, *, seed: int, n_bins: int,
@@ -280,12 +274,12 @@ def prepare(data: Path) -> None:
     import numpy as np
     import torch
 
-    from repro_torch.core.config import GrowConfig
+    from repro_torch.configs.yadt import WORKLOAD
     from repro_torch.data import datasets, quest
     from repro_torch.infer import forest as F
 
     data.mkdir(parents=True, exist_ok=True)
-    cfg = GrowConfig(**GROW)
+    cfg = WORKLOAD.grow
     syd = quest.syd(SYD_CASES, seed=SYD_SEED, max_bins=SYD_BINS)
     census = datasets.load("census_pums", scale=CENSUS_SCALE,
                            max_bins=CENSUS_BINS)

@@ -223,6 +223,59 @@ def test_build_cuda_equals_torch_on_the_card(dev):
         assert trees_equal(t_cuda, t_torch)
 
 
+def test_concurrent_builds_from_threads(dev):
+    """4 frontier.build(impl="cuda") at once from threads, as the farm's
+    workers launch them: three classes and B = 320 .. 1,024 bins put split
+    gain on its shared-memory kernel with an opt-in of 34-101 KB that
+    differs between the threads.  Each tree equals its build alone, and
+    the launch counts are the lone builds' sum exactly."""
+    import threading
+
+    from repro_torch.core import binning, frontier
+    from repro_torch.core.config import GrowConfig
+    from repro_torch.core.tree import trees_equal
+    from repro_torch.kernels import autotune, histogram, split_gain
+    cfg = GrowConfig(max_nodes=1 << 12, frontier_slots=32)
+    sets = []
+    for i, b in enumerate((320, 512, 768, 1024)):
+        rng = np.random.default_rng(i)
+        x = np.stack([rng.integers(-1, b, 20_000),
+                      rng.integers(-1, b, 20_000),
+                      rng.integers(-1, 6, 20_000)], axis=1)
+        y = (x[:, 0] * 3 // b + rng.integers(0, 2, 20_000)) % 3
+        sets.append(binning.from_binned(
+            x, y, attr_is_cont=[True, True, False], n_bins=[b, b, 6],
+            n_classes=3))
+        assert not autotune.plan_split_gain(n_bins=b, n_classes=3).regs
+    alone, counts = [], []
+    for ds in sets:
+        h0, g0 = histogram.LAUNCHES, split_gain.LAUNCHES
+        alone.append(frontier.build(ds, cfg, impl="cuda"))
+        counts.append((histogram.LAUNCHES - h0, split_gain.LAUNCHES - g0))
+    got, errors = [None] * len(sets), []
+    start = threading.Barrier(len(sets))
+
+    def grow(i):
+        try:
+            start.wait()
+            got[i] = frontier.build(sets[i], cfg, impl="cuda")
+        except BaseException as e:       # surfaced below
+            errors.append(e)
+    h0, g0 = histogram.LAUNCHES, split_gain.LAUNCHES
+    threads = [threading.Thread(target=grow, args=(i,))
+               for i in range(len(sets))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert not errors, errors
+    for a, b in zip(alone, got):
+        assert trees_equal(a, b)
+    assert (histogram.LAUNCHES - h0, split_gain.LAUNCHES - g0) == tuple(
+        map(sum, zip(*counts)))
+
+
 # (T, M, A, N): a lone root leaf, N = 1 and 257 (off every block), a random
 # 4-tree forest, wider tables up to 2^14 rows; 70,000 lone leaves and
 # small trees (past the 65,535 trees of a grid's y dimension); A = 2,000
