@@ -19,7 +19,15 @@ Phases (each one that fails ends the run with a non-zero exit):
      with the defaults (the CUDA kernels) and collect_stats=True; both
      kernels must have been launched by that build.  Then one timed build
      each of the defaults and of impl="torch" on the same card, both without
-     stats; all three trees must be equal.
+     stats; all three trees must be equal.  Then one traced build
+     (impl="cuda", a fresh Tracer and Registry, collect_stats=True): its
+     tree must equal theirs, its superstep and splitAtt spans and
+     frontier_supersteps_total must be its supersteps, and its histogram
+     and split-gain launches those supersteps (with live cases, for the
+     histogram).  Prints the time of each phase (splitPre, splitAtt,
+     splitPost, each ending in a wait for the card) beside the untraced
+     wall time and the text report, and writes the Chrome trace to
+     build/trace_syd10m9a.json.
   4. census_pums at scale 1.0 (299,285 cases, 40 attributes): the wide
      discrete-split case, impl="cuda" against impl="torch".
   5. forest: a 16-tree random forest on SyD10M9A trained by
@@ -76,12 +84,27 @@ Phases (each one that fails ends the run with a non-zero exit):
      under crash_p 0.2 with worker 1 dead must equal it, with retries, no
      quarantine and no failure but the injected ones; and train_forest of
      8 trees under the same chaos must equal train_forest_sequential.
-     Prints each build's wall time.  It runs last, after the LM has freed
-     the card.
+     Prints each build's wall time.  It runs after the LM has freed the
+     card, and records the c45 build's task trace for phase 10.
+ 10. the paper's farm, simulated and measured, on census_pums cut to scale
+     0.02 (5,985 cases, 40 attributes, 128 bins): c45.build on the card,
+     timed, records its task trace; frontier.build_farm on 1, 2 and 4
+     workers without faults must equal it.  The farm simulator
+     (repro_torch.core.simulate), calibrated on c45's seconds, replays the
+     trace under NP and NAP with the drr, od and ws policies at 1, 2, 4
+     and 8 workers; also NP and NAP under ws with a fixed cost a task
+     (c45's seconds over its nodes: the card's c45 is bound by launches),
+     and NP and NAP under ws at 8 workers on phase 9's trace.  Gates are
+     the model's invariants: no speedup above its workers + 0.05, the
+     calibrated sequential time equal to c45's seconds (rel 1e-9), and
+     with no overheads, NP's worker busy time summing to it (rel 1e-6).
+     Prints {"farm_model": {...}}: the simulated speedups beside the
+     measured farm's (c45 seconds over farm seconds).
 
-Before the kernels' JSON record comes {"ensemble": {...}} (trees/s, the
-OOB score, coverage and time split, the chaos phase's failures and wall
-times); the last line is {"ok": true, "device": {...}}.  It imports
+Before the kernels' JSON record come {"farm_model": {...}} and
+{"ensemble": {...}} (trees/s, the OOB score, coverage and time split, the
+chaos phase's failures and wall times); the last line is {"ok": true,
+"device": {...}}.  It imports
 nothing of JAX or of the JAX package: the data generators and the grow
 configuration (repro_torch.configs.yadt.WORKLOAD.grow) are the port's.
 """
@@ -189,6 +212,17 @@ CHAOS_WORKERS = 4
 CHAOS_FOREST_TREES = 8
 CHAOS_SEED = 7
 CHAOS_FAULT = dict(max_retries=8, seed=3, backoff_base=1e-4)
+
+# Phase 10: the paper's farm on census_pums cut to FARM_SCALE (5,985
+# cases): c45 on the card takes about 3 s there and the farm build 1.4-4.8
+# times that (PERF.md section 6), so the phase fits in about 30 s.  The
+# simulator replays at the paper's worker counts; its speedups may not pass
+# the workers by more than SPEEDUP_SLACK (the tests' bound on the model).
+FARM_SCALE = 0.02
+FARM_WORKERS = (1, 2, 4)
+SIM_WORKERS = (1, 2, 4, 8)
+SIM_POLICIES = ("drr", "od", "ws")
+SPEEDUP_SLACK = 0.05
 
 # Split-gain score tolerance: the discrete branch sums per-bin entropy terms
 # in another order than the torch reduction (f32 rounding, about 1 ulp of
@@ -525,6 +559,62 @@ def grow_both(name, ds, cfg, dev) -> tuple[dict, object, dict]:
                 trees_equal=True, launches=launches)
     print(json.dumps(info))
     return launches, tree, info
+
+
+PHASES = ("splitPre", "splitAtt", "splitPost")
+
+
+def traced_build(name, ds, cfg, tree, info) -> dict:
+    """Phase 3's traced build: frontier.build(impl="cuda") with a fresh
+    Tracer and Registry and collect_stats=True.  Its tree must equal
+    ``tree`` (which ``grow_both`` held to its other builds), its spans
+    and ``frontier_supersteps_total`` its supersteps, and its kernel
+    launches those supersteps.  Prints each phase's time beside the
+    untraced build's wall time and the text report; writes the Chrome
+    trace under build/."""
+    from repro_torch.core import frontier
+    from repro_torch.core.tree import trees_equal
+    from repro_torch.kernels import histogram, split_gain
+    from repro_torch.obs import Registry, Tracer, report
+
+    tr, reg = Tracer(), Registry()
+    histogram.LAUNCHES = split_gain.LAUNCHES = 0
+    (traced, rows), wall = _timed(lambda: frontier.build(
+        ds, cfg, impl="cuda", collect_stats=True, tracer=tr, metrics=reg))
+    launches = dict(frontier_histogram=histogram.LAUNCHES,
+                    split_gain=split_gain.LAUNCHES)
+    check(trees_equal(traced, tree), f"{name}: the traced build's tree != "
+          f"the untraced builds' tree")
+    steps = len(rows)
+    check(steps == info["supersteps"], f"{name}: the traced build took "
+          f"{steps} supersteps, the untraced {info['supersteps']}")
+    summ = tr.span_summary()
+    for span in ("superstep", *PHASES):
+        check(summ[span]["count"] == steps, f"{name}: {summ[span]['count']}"
+              f" {span} spans for {steps} supersteps")
+    counted = reg.snapshot()["frontier_supersteps_total"]["series"][0][
+        "value"]
+    check(counted == steps, f"{name}: frontier_supersteps_total {counted} "
+          f"for {steps} supersteps")
+    live = sum(1 for r in rows if r["n_active"] > 0)
+    check(launches == dict(frontier_histogram=live, split_gain=steps),
+          f"{name}: traced build launches {launches} != its {steps} "
+          f"supersteps ({live} with live cases)")
+    path = ROOT / "build" / f"trace_{name}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tr.save(str(path))
+    phases = {p: summ[p]["total_us"] / 1e6 for p in PHASES}
+    out = dict(dataset=name, supersteps=steps, traced_wall_s=wall,
+               untraced_wall_s=info["build_cuda_s"],
+               superstep_spans_s=summ["superstep"]["total_us"] / 1e6,
+               phase_s=phases, launches=launches, trees_equal=True,
+               chrome_trace=str(path.relative_to(ROOT)))
+    print(report.render(tracer=tr, metrics=reg))
+    print(f"{name} traced: {wall:.3f} s against {info['build_cuda_s']:.3f}"
+          f" s untraced; " + ", ".join(f"{p} {t:.3f} s"
+                                       for p, t in phases.items()))
+    print(json.dumps({"traced_build": out}))
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1167,17 +1257,19 @@ def _check_chaos(what, stats, inj) -> dict:
                                   "dead_workers", "worker_tasks")}
 
 
-def oracle_and_chaos(ds, frontier_tree, cfg, dev) -> dict:
+def oracle_and_chaos(ds, frontier_tree, cfg, dev, task_trace) -> dict:
     """Phase 9: the sequential oracle on the card equals the CUDA frontier
     tree; the farm build and a farm-trained forest under chaos equal the
-    oracle and the sequential trainer."""
+    oracle and the sequential trainer.  The oracle's task trace goes to
+    ``task_trace``."""
     from repro_torch.core import c45, frontier
     from repro_torch.core.tree import trees_equal
     from repro_torch.ensemble import trainer
 
     if frontier_tree is None:
         frontier_tree = frontier.build(ds, cfg, device=dev)
-    oracle, c45_s = _timed(lambda: c45.build(ds, cfg, device=dev))
+    oracle, c45_s = _timed(lambda: c45.build(ds, cfg, device=dev,
+                                             task_trace=task_trace))
     check(trees_equal(oracle, frontier_tree),
           f"c45 on the card ({oracle.size} nodes) != the impl='cuda' "
           f"frontier tree ({frontier_tree.size} nodes)")
@@ -1213,6 +1305,90 @@ def oracle_and_chaos(ds, frontier_tree, cfg, dev) -> dict:
                 c45_s=c45_s, farm_build_s=farm_s, farm_build=farm,
                 chaos_forest_s=forest_s, sequential_forest_s=seq_s,
                 chaos_forest=forest)
+
+
+# --------------------------------------------------------------------------
+# phase 10: the paper's farm, simulated and measured
+# --------------------------------------------------------------------------
+
+def _speedups(trace, cost, *, strategy, policy, workers) -> dict:
+    """Simulated speedup at each worker count, each within the model's
+    bound."""
+    from repro_torch.core import simulate
+    out = {}
+    for w in workers:
+        sp = simulate.simulate(trace, n_workers=w, strategy=strategy,
+                               policy=policy, cost=cost).speedup
+        check(sp <= w + SPEEDUP_SLACK, f"simulated {strategy}/{policy} "
+              f"speedup {sp} at {w} workers")
+        out[str(w)] = sp
+    return out
+
+
+def farm_model(ds, cfg, dev, big_trace, big_c45_s) -> dict:
+    """Phase 10: c45 on the card, timed, with its task trace; the farm
+    build at FARM_WORKERS, each equal to it; the simulator calibrated on
+    c45's seconds over that trace (and over phase 9's), gated on its
+    invariants.  Returns the simulated and measured speedups."""
+    import math
+
+    from repro_torch.core import c45, frontier, simulate
+    from repro_torch.core.tree import trees_equal
+
+    trace = []
+    oracle, c45_s = _timed(lambda: c45.build(
+        ds, cfg, device=dev, task_trace=trace, capacity=cfg.max_nodes))
+    check(len(trace) == oracle.size, f"c45 traced {len(trace)} tasks for "
+          f"{oracle.size} nodes")
+    measured = {}
+    for w in FARM_WORKERS:
+        tree, farm_s = _timed(lambda: frontier.build_farm(
+            ds, cfg, n_workers=w, device=dev))
+        check(trees_equal(tree, oracle), f"build_farm on {w} workers != "
+              f"c45")
+        measured[str(w)] = dict(seconds=farm_s, speedup=c45_s / farm_s)
+
+    cm = simulate.calibrate(trace, c45_s)
+    simulated = {f"{st}/{pol}": _speedups(trace, cm, strategy=st,
+                                          policy=pol, workers=SIM_WORKERS)
+                 for st in ("np", "nap") for pol in SIM_POLICIES}
+    per_task = simulate.CostModel(kappa=0.0, task_fixed=c45_s / len(trace))
+    fixed = {f"{st}/ws": _speedups(trace, per_task, strategy=st,
+                                   policy="ws", workers=SIM_WORKERS)
+             for st in ("np", "nap")}
+    big_cm = simulate.calibrate(big_trace, big_c45_s)
+    big = {f"{st}/ws": _speedups(big_trace, big_cm, strategy=st,
+                                 policy="ws", workers=(8,))["8"]
+           for st in ("np", "nap")}
+
+    # the model's invariants
+    zero = simulate.calibrate(trace, c45_s, task_fixed=0.0,
+                              emit_overhead=0.0)
+    seq = simulate.sequential_time(trace, zero)
+    check(math.isclose(seq, c45_s, rel_tol=1e-9),
+          f"calibrated sequential time {seq} != c45's {c45_s} s")
+    for pol in SIM_POLICIES:
+        for w in SIM_WORKERS:
+            r = simulate.simulate(trace, n_workers=w, strategy="np",
+                                  policy=pol, cost=zero)
+            check(math.isclose(sum(r.worker_busy), r.seq_time,
+                                rel_tol=1e-6),
+                  f"np/{pol} at {w} workers: worker busy "
+                  f"{sum(r.worker_busy)} != sequential {r.seq_time}")
+    out = dict(cases=ds.n_cases, attrs=ds.n_attrs, nodes=oracle.size,
+               c45_s=c45_s, kappa=cm.kappa, measured_farm=measured,
+               simulated=simulated, simulated_fixed_task_cost=dict(
+                   task_fixed_s=per_task.task_fixed, **fixed),
+               scale_0_1=dict(cases=big_trace[0]["r"],
+                              nodes=len(big_trace), c45_s=big_c45_s,
+                              workers=8, **big))
+    farm = ", ".join(f"{w} workers {m['speedup']:.3f}"
+                     for w, m in measured.items())
+    print(f"farm model: c45 {c45_s:.3f} s for {oracle.size} nodes; "
+          f"build_farm speedup {farm}; simulated at 8 workers: nap/ws "
+          f"{simulated['nap/ws']['8']:.3f}, np/ws "
+          f"{simulated['np/ws']['8']:.3f}")
+    return out
 
 
 def main() -> int:
@@ -1273,8 +1449,13 @@ def main() -> int:
     # ---- 3. SyD10M9A, the build path
     cfg = WORKLOAD.grow
     t0 = time.perf_counter()
-    build_launches, _, _ = grow_both("syd10m9a", syd, cfg, dev)
+    build_launches, syd_tree, syd_info = grow_both("syd10m9a", syd, cfg,
+                                                   dev)
     times["syd_builds_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    traced = traced_build("syd10m9a", syd, cfg, syd_tree, syd_info)
+    times["syd_traced_build_s"] = time.perf_counter() - t0
+    del syd_tree
 
     # ---- 4. census_pums: wide discrete splits
     t0 = time.perf_counter()
@@ -1310,6 +1491,7 @@ def main() -> int:
     for rec, key in ((hist_rec, "frontier_histogram"),
                      (gain_rec, "split_gain")):
         rec["launches_by_path"] = dict(build=build_launches[key],
+                                       traced_build=traced["launches"][key],
                                        train_forest=trained["launches"][key])
     infer_rec["launches"] = served["tree_infer_launches"]
     infer_rec["launches_by_path"] = dict(
@@ -1341,8 +1523,17 @@ def main() -> int:
         raise SmokeError("census_pums overflowed max_nodes in phase 4: the "
                          "c45 oracle grows freely, so the trees cannot "
                          "compare; cut CHAOS_SCALE")
-    chaos = oracle_and_chaos(census, census_tree, cfg, dev)
+    chaos_trace = []
+    chaos = oracle_and_chaos(census, census_tree, cfg, dev, chaos_trace)
     times["chaos_s"] = time.perf_counter() - t0
+
+    # ---- 10. the paper's farm, simulated and measured (census_pums 0.02)
+    t0 = time.perf_counter()
+    small = datasets.load("census_pums", scale=FARM_SCALE,
+                          max_bins=CENSUS_BINS)
+    model = farm_model(small, cfg, dev, chaos_trace, chaos["c45_s"])
+    times["farm_model_s"] = time.perf_counter() - t0
+    print(json.dumps({"farm_model": model}))
 
     print(json.dumps({"ensemble": dict(
         trees=FOREST_TREES, workers=FOREST_WORKERS,

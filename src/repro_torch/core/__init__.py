@@ -11,6 +11,7 @@ Public surface:
   farm.Farm, FaultPolicy        — supervised farm-with-feedback runtime
   faults.FaultInjector          — deterministic crash/hang/slow injection
   scheduler.*                   — DRR/OD/WS/HealthWS policies
+  simulate.simulate             — discrete-event farm replay (paper figures)
 """
 
 from repro_torch.core.binning import (BinnedDataset, fit,  # noqa: F401

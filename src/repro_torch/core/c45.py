@@ -337,9 +337,12 @@ def build(ds: BinnedDataset, cfg: GrowConfig = GrowConfig(), *, device=None,
     """Breadth-first C4.5 growth (paper Fig. 4, tree::build) on ``device``
     (None: the card; raises without one).
 
-    ``task_trace``, when given, records one entry per processed node:
-    ``(node_id, parent_id, r, c, n_children)`` — the exact task DAG the farm
-    simulator replays (weights = r, as in the paper's WS policy).
+    ``task_trace``, when given, records one dict per processed node, in
+    processing order, with the keys ``node_id``, ``parent`` (-1 at the
+    root), ``r`` (cases), ``c`` (active attributes), ``n_children`` (0 for
+    a leaf) and ``depth`` — the exact task DAG that
+    :func:`repro_torch.core.simulate.simulate` replays (weights = r, as in
+    the paper's WS policy).
 
     ``attr_mask`` (bool (A,)) restricts the split search to a subset of
     attributes and ``case_w`` (f32 (N,)) overrides the per-case weights —

@@ -8,10 +8,15 @@ False); ``|T|`` is the whole training-set size:
   nlogn :  |T| < c·r·log2(r)
   nsq   :  |T| < c·r²
 
-The frontier engine sums the decisions into its ``nap_nodes`` statistic.
+The frontier engine sums the decisions into its ``nap_nodes`` statistic;
+the farm simulator (:mod:`repro_torch.core.simulate`) takes one per split
+node, and ``task_grain`` is the paper's grain of a node task, on plain
+Python floats.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -30,3 +35,14 @@ def build_att_test(model: str, *, n_total_cases: float, r, c,
     if model == "nsq":
         return n_total_cases < c * r * r
     raise ValueError(f"unknown cost model {model!r}; choose from {COST_MODELS}")
+
+
+def task_grain(model: str, *, r: float, c: float) -> float:
+    """Analytic node-processing grain used by the simulator's cost table.
+
+    The paper models node::split as quicksort-dominated: average c·r·log r,
+    worst-case c·r².  ``task_grain`` returns the average-case estimate (the
+    simulator calibrates the constant from measured oracle timings).
+    """
+    r = max(float(r), 1.0)
+    return float(c) * r * max(math.log2(r), 1.0)

@@ -23,6 +23,7 @@ look at rows below M.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any
 
 import numpy as np
@@ -317,8 +318,38 @@ def superstep(state: GrowState, x: torch.Tensor, y: torch.Tensor,
 # Full build
 # --------------------------------------------------------------------------
 
+def _traced_superstep(state: GrowState, x: torch.Tensor, y: torch.Tensor,
+                      w: torch.Tensor, attr_is_cont: torch.Tensor,
+                      n_bins: torch.Tensor, *, prob: FrontierProblem,
+                      impl: str, tracer, phase_seconds, step: int
+                      ) -> tuple[GrowState, dict[str, torch.Tensor]]:
+    """:func:`superstep` as a ``superstep`` span holding its three phases
+    as ``splitPre`` / ``splitAtt`` / ``splitPost`` spans, one after
+    another.  Each phase ends by waiting for the card (the JAX build's
+    ``block_until_ready``), so a span's time is its host dispatch and its
+    device work; its seconds also go to ``phase_seconds{phase=...}``."""
+    dev = x.device
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        with tracer.span(name):
+            out = fn(*args, **kw)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        phase_seconds.observe(time.perf_counter() - t0, phase=name)
+        return out
+
+    with tracer.span("superstep", step=step):
+        pre = timed("splitPre", split_pre, state, prob=prob)
+        att = timed("splitAtt", split_att, state, pre, x, y, w, attr_is_cont,
+                    n_bins, prob=prob, impl=impl)
+        return timed("splitPost", split_post, state, pre, att, x,
+                     attr_is_cont, n_bins, prob=prob)
+
+
 def build(ds: BinnedDataset, cfg: GrowConfig = GrowConfig(), *,
           impl: str | None = None, device=None, collect_stats: bool = False,
+          tracer: Any = None, metrics: Any = None,
           attr_mask: Any = None, case_w: Any = None,
           ) -> Tree | tuple[Tree, list[dict[str, Any]]]:
     """Grow a C4.5 tree with the frontier engine on ``device``.
@@ -330,6 +361,21 @@ def build(ds: BinnedDataset, cfg: GrowConfig = GrowConfig(), *,
     ``collect_stats=True`` also returns one row of scheduling statistics
     per superstep (NP vs NAP decisions per the configured cost model; the
     JAX rows' keys, plus ``overflow``: capacity has forced early leaves).
+    The rows also feed the metrics registry (``metrics``, default
+    :data:`repro_torch.obs.metrics.REGISTRY`): ``frontier_supersteps_total``,
+    ``frontier_active_cases``, ``frontier_open_nodes``,
+    ``frontier_nap_nodes_total`` and ``frontier_children_total``.
+
+    With an *enabled* ``tracer`` (:class:`repro_torch.obs.trace.Tracer`)
+    the registry is fed as well, and each superstep runs as a ``superstep``
+    span whose three phases are separately synchronised ``splitPre`` /
+    ``splitAtt`` / ``splitPost`` spans, timed into
+    ``frontier_phase_seconds{phase=...}``; the tracer also gets a
+    ``frontier.n_active`` counter sample a superstep.  Without stats it
+    still returns the tree alone.  With tracing disabled (``None`` or
+    :data:`repro_torch.obs.trace.NULL`) and no stats, the loop runs as
+    untraced, with no metric.
+
     ``attr_mask`` (bool (A,)) restricts the split search to a subset of
     attributes; ``case_w`` (f32 (N,)) overrides the per-case weights.
     """
@@ -352,16 +398,41 @@ def build(ds: BinnedDataset, cfg: GrowConfig = GrowConfig(), *,
     cont = torch.as_tensor(ds.attr_is_cont, dtype=torch.bool).to(dev)
     nb = torch.as_tensor(ds.n_bins, dtype=torch.int32).to(dev)
     m = cfg.max_nodes
+    traced = tracer is not None and tracer.enabled
+    observed = collect_stats or traced
+    if observed:
+        from repro_torch.obs import metrics as obs_metrics
+        reg = metrics if metrics is not None else obs_metrics.REGISTRY
+        m_steps = reg.counter("frontier_supersteps_total")
+        m_active = reg.gauge("frontier_active_cases")
+        m_open = reg.gauge("frontier_open_nodes")
+        m_nap = reg.counter("frontier_nap_nodes_total")
+        m_children = reg.counter("frontier_children_total")
+        m_phase = reg.histogram("frontier_phase_seconds",
+                                "per-phase superstep wall time, phase= label")
 
     state = init_state(prob, y, w, mask)
     rows: list[dict[str, Any]] = []
     # The JAX build's lax.while_loop is a host loop here: its condition
     # waits for the device once per superstep.
     while bool(torch.any(state.status[:m] == GrowState.STATUS_OPEN)):
-        state, stats = superstep(state, x, y, w, cont, nb, prob=prob,
-                                 impl=impl)
-        if collect_stats:
-            rows.append({key: v.item() for key, v in stats.items()})
+        if traced:
+            state, stats = _traced_superstep(
+                state, x, y, w, cont, nb, prob=prob, impl=impl,
+                tracer=tracer, phase_seconds=m_phase, step=len(rows))
+        else:
+            state, stats = superstep(state, x, y, w, cont, nb, prob=prob,
+                                     impl=impl)
+        if observed:
+            row = {key: v.item() for key, v in stats.items()}
+            rows.append(row)
+            m_steps.inc()
+            m_active.set(row["n_active"])
+            m_open.set(row["n_processed"])
+            m_nap.inc(row["nap_nodes"])
+            m_children.inc(row["n_children"])
+            if traced:
+                tracer.counter("frontier.n_active", value=row["n_active"])
     t = state.tree
     tree = Tree(**{f.name: getattr(t, f.name)[:m]
                    for f in dataclasses.fields(Tree) if f.name != "n_nodes"},

@@ -10,8 +10,9 @@ The emitter assigns each outgoing task to a worker queue according to one of:
         with the lowest total queued+running weight.
 
 Policies are pure-Python and deliberately tiny: they are shared by the real
-threaded farm (:mod:`repro.core.farm`), the discrete-event simulator
-(:mod:`repro.core.simulate`) and the serving engine's request dispatcher.
+threaded farm (:mod:`repro_torch.core.farm`), the discrete-event simulator
+(:mod:`repro_torch.core.simulate`) and the serving engine's request
+dispatcher.
 """
 
 from __future__ import annotations

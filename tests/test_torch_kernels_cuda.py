@@ -223,6 +223,33 @@ def test_build_cuda_equals_torch_on_the_card(dev):
         assert trees_equal(t_cuda, t_torch)
 
 
+def test_traced_build_equals_untraced_on_the_card(dev):
+    """frontier.build(impl="cuda") with an enabled tracer (each phase a
+    span that waits for the card) grows the untraced tree, with a span of
+    each phase and a histogram and split-gain launch each superstep."""
+    from repro_torch.core import frontier
+    from repro_torch.core.config import GrowConfig
+    from repro_torch.core.tree import trees_equal
+    from repro_torch.data import datasets
+    from repro_torch.kernels import histogram, split_gain
+    from repro_torch.obs import Registry, Tracer
+    ds = datasets.load("census_pums", scale=0.01, max_bins=64)
+    cfg = GrowConfig(max_nodes=1 << 14, frontier_slots=64)
+    plain = frontier.build(ds, cfg, impl="cuda")
+    tr, reg = Tracer(), Registry()
+    h0, g0 = histogram.LAUNCHES, split_gain.LAUNCHES
+    traced, rows = frontier.build(ds, cfg, impl="cuda", collect_stats=True,
+                                  tracer=tr, metrics=reg)
+    assert trees_equal(plain, traced)
+    summ = tr.span_summary()
+    for span in ("superstep", "splitPre", "splitAtt", "splitPost"):
+        assert summ[span]["count"] == len(rows)
+    assert split_gain.LAUNCHES - g0 == len(rows)
+    assert histogram.LAUNCHES - h0 == sum(r["n_active"] > 0 for r in rows)
+    phase = reg.snapshot()["frontier_phase_seconds"]["series"]
+    assert len(phase) == 3 and all(s["count"] == len(rows) for s in phase)
+
+
 def test_concurrent_builds_from_threads(dev):
     """4 frontier.build(impl="cuda") at once from threads, as the farm's
     workers launch them: three classes and B = 320 .. 1,024 bins put split
