@@ -7,7 +7,9 @@ Phases (each one that fails ends the run with a non-zero exit):
 
   0. device: needs CUDA; prints the card's name and power limit.
   1. build: compiles the CUDA kernels of src/repro_torch/kernels/csrc with
-     nvcc (sm_90a) into build/kernels/ and prints the build time.
+     nvcc (sm_90a) into build/kernels/ and prints the build time: the
+     histogram, split gain, forest traversal, flash-attention forward and
+     flash-attention backward.
   2. kernels: each kernel's wrapper against its plain torch version on the
      card, at the shapes of the SyD10M9A build and at edge shapes; times the
      kernel, the plain version and the library call.  The histogram also in
@@ -65,7 +67,18 @@ Phases (each one that fails ends the run with a non-zero exit):
      version at the three gemma2 layer settings, beside the earlier scalar
      bf16 kernel's times (quoted from PERF.md, not re-run), and torch's
      scaled_dot_product_attention (the library yardstick, never called by
-     the port) at S = 7,000 with window 0 and softcap 0.
+     the port) at S = 7,000 with window 0 and softcap 0.  Then the backward
+     kernel (csrc/flash_attention_bwd.cu) against the plain backward, in
+     f32 and bf16, at the JAX test shapes, at ragged S (1, 63, 65, 1000)
+     with D = 128 and 256, and at the training layer shapes (S = 4,096):
+     gemma2_9b's (B 1, H 16, KV 8, D 256, softcap 50, window 4,096 and 0),
+     gemma3_4b's (B 2, H 8, KV 4, D 256, window 1,024 and 0) and
+     phi4_mini's (B 2, H 24, KV 8, D 128); at each, the forward kernel's
+     output must not change when it also writes the LSE, and its LSE must
+     equal the plain version's.  Times the bf16 backward kernel and the
+     plain backward at the layer shapes, and torch autograd through causal
+     GQA scaled_dot_product_attention (the yardstick) at window 0, softcap
+     0, each beside its bound.
   8. LM serving: gemma2_9b at full width and depth (42 layers, 10.16B
      parameters, bf16, random weights from seed 0) through
      repro_torch.launch.serve's engine: one replica, 4 slots, max_seq
@@ -101,10 +114,27 @@ Phases (each one that fails ends the run with a non-zero exit):
      Prints {"farm_model": {...}}: the simulated speedups beside the
      measured farm's (c45 seconds over farm seconds).
 
-Before the kernels' JSON record come {"farm_model": {...}} and
-{"ensemble": {...}} (trees/s, the OOB score, coverage and time split, the
-chaos phase's failures and wall times); the last line is {"ok": true,
-"device": {...}}.  It imports
+ 11. LM training: gemma3_4b at full width and depth (34 layers, 4.55B
+     parameters in bf16, random weights from seed 0) through
+     repro_torch.launch.train.train(reduced=False, steps=8, global_batch=2,
+     seq_len=4,096), after phase 8 has freed the card.  First one
+     loss-and-gradient evaluation on the first batch and the same weights
+     with impl="cuda" against impl="torch" (the plain attention pair): the
+     loss, the global grad norm and the relative L2 of the gradients of the
+     embedding, layer 0's wq and the last global layer's w_down must agree.
+     Then the run: every loss finite and the last below the first; the
+     forward kernel launched 64 times a step (the 30 layers of the 5
+     rematerialised cycles twice, the 4 tail layers once) and the backward
+     kernel 34 times, all bf16.  Prints each step's wall time and tokens/s
+     and the peak memory.
+ 11b. resume on the card: reduced gemma3_4b at 256 tokens, 4 steps straight
+     against 2 steps, a checkpoint (which must verify) and a resume for 2
+     more; the last losses must be equal, bit for bit.
+
+Before the kernels' JSON record come {"farm_model": {...}}, {"train":
+{...}} and {"ensemble": {...}} (trees/s, the OOB score, coverage and time
+split, the chaos phase's failures and wall times); the last line is {"ok":
+true, "device": {...}}.  It imports
 nothing of JAX or of the JAX package: the data generators and the grow
 configuration (repro_torch.configs.yadt.WORKLOAD.grow) are the port's.
 """
@@ -185,6 +215,31 @@ FLASH_SCALAR_MS = {(0, 0.0): 21.616, (0, 50.0): 22.59, (4096, 50.0): 18.16}
 # an output near 1 (the tensor-core kernel also rounds P to bf16).
 FLASH_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 
+# Phase 7, the backward kernel (csrc/flash_attention_bwd.cu) against the
+# plain backward, (B, S, H, KV, D, window, softcap), each in f32 and bf16:
+# the JAX test shapes of phase 7, ragged S at D = 128 and 256, then the
+# layer shapes of gemma2_9b, gemma3_4b (global and local) and phi4_mini at
+# the training length.
+BWD_CASES = [c[:7] for c in FLASH_CASES[:6]] + [
+    (1, s, 16, 8, d, w, cap) for d in (128, 256) for s in (1, 63, 65, 1000)
+    for w, cap in ((0, 0.0), (100, 50.0))]
+TRAIN_S = 4_096
+BWD_LAYERS = {
+    "gemma2_9b_window": (1, TRAIN_S, 16, 8, 256, 4096, 50.0),
+    "gemma2_9b_global": (1, TRAIN_S, 16, 8, 256, 0, 50.0),
+    "gemma3_4b_global": (2, TRAIN_S, 8, 4, 256, 0, 0.0),
+    "gemma3_4b_local": (2, TRAIN_S, 8, 4, 256, 1024, 0.0),
+    "phi4_mini": (2, TRAIN_S, 24, 8, 128, 0, 0.0),
+}
+# Backward kernel against plain: f32 atol 2e-4 (another summation order;
+# this script measured at most 3.9e-5 on an H100); bf16 within 1% of the
+# largest plain gradient (both round f32 sums to bf16, a relative step of
+# 2^-8; measured at most 0.0625 absolute).  The forward's LSE: atol 1e-4
+# (measured 2.1e-5: the tensor-core kernel's log2-unit max times ln 2).
+BWD_F32_ATOL = 2e-4
+BWD_BF16_REL = 1e-2
+LSE_ATOL = 1e-4
+
 # Phase 8: gemma2_9b serving at full width and depth.
 LM_ARCH = "gemma2_9b"
 LM_SEED = 0
@@ -199,6 +254,29 @@ LM_PROMPTS = (7_000, 5_121, 4_096, 3_000, 1_537, 777, 256, 33)
 # logit vector 0.0196, largest difference 0.094.  Limits about 2.5x that.
 LM_LOGIT_REL_TOL = 0.05
 LM_LOGIT_ABS_TOL = 0.25
+
+# Phase 11: gemma3_4b trained at full width and depth (34 layers, 4.55B
+# parameters in bf16, random weights from seed 0) through launch.train:
+# train_4k's sequence length, its global batch of 256 (a pod's) cut to 2 by
+# one card's memory (12 bytes a parameter of state, 54.6 GB, plus the
+# activations).  A step runs the forward kernel twice for each of the 30
+# layers of the five rematerialised cycles and once for each of the 4 tail
+# layers, and the backward kernel once a layer.
+TRAIN_ARCH = "gemma3_4b"
+TRAIN_STEPS = 8
+TRAIN_BATCH = 2
+TRAIN_SEED = 0
+# One loss-and-gradient evaluation on the first batch, the kernel pair
+# against the plain pair: the bf16 forward kernel rounds P to bf16 before
+# P . V, and 34 layers carry the difference.  Measured on an H100: loss
+# |diff| 1.5e-4 (of 12.74), grad norm relative 5.2e-5, gradient relative
+# L2 0.0033 (embedding), 0.0048 (layer 0's wq), 0.0029 (layer 29's
+# w_down).  Limits about 3x that.
+TRAIN_LOSS_ATOL = 5e-4
+TRAIN_GRAD_REL_L2 = 0.015
+TRAIN_GNORM_REL = 2e-4
+# Phase 11b: resume on the card, reduced gemma3_4b at 256 tokens.
+RESUME_SEQ = 256
 
 # Phase 9: the c45 oracle and the farm under chaos on census_pums, cut to
 # CHAOS_SCALE of its 299,285 cases (29,928): on the full set the oracle
@@ -1105,6 +1183,137 @@ def check_flash(gen, dev) -> dict:
                    window=0, softcap=0.0))
 
 
+def _bwd_inputs(case, dtype, gen, dev):
+    """q scaled, k, v and dO of a backward case, and the forward kernel's
+    output and LSE on them."""
+    import torch
+    from repro_torch.kernels import flash_attention
+    b, s, h, kv, d, window, cap = case
+    q, k, v = _flash_inputs((b, s, h, kv, d, window, cap, dtype), gen, dev)
+    do = torch.randn((b, s, h, d), generator=gen, device=dev).to(q.dtype)
+    qs = flash_attention.scale_query(q)
+    o, lse = flash_attention.flash_attention_fwd(
+        qs, k, v, window=window, softcap=cap, with_lse=True)
+    return qs, k, v, o, do, lse
+
+
+def _bwd_case(case, dtype, gen, dev) -> tuple[float, float]:
+    """The forward's LSE and unchanged output, then the backward kernel
+    against the plain backward; (max |diff| of the gradients, of the
+    LSE)."""
+    import torch
+    from repro_torch.kernels import flash_attention, ref
+    *_, window, cap = case
+    kw = dict(window=window, softcap=cap)
+    qs, k, v, o, do, lse = _bwd_inputs(case, dtype, gen, dev)
+    serving = flash_attention.flash_attention_fwd(qs, k, v, **kw)
+    _, want_lse = ref.flash_attention_fwd_ref(qs, k, v, **kw)
+    got = flash_attention.flash_attention_bwd(qs, k, v, o, do, lse, **kw)
+    want = ref.flash_attention_bwd_ref(qs, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(o, serving), f"flash: writing the LSE changed the "
+          f"output at {case} {dtype}")
+    lse_err = (lse - want_lse).abs().max().item()
+    check(lse_err <= LSE_ATOL, f"flash LSE != plain at {case} {dtype}: "
+          f"{lse_err:.3g} > {LSE_ATOL}")
+    err = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"flash_bwd: bad {name} {tuple(g.shape)} {g.dtype} at {case}")
+        check(bool(torch.isfinite(g).all()), f"flash_bwd: non-finite {name} "
+              f"at {case} {dtype}")
+        e = (g.float() - w.float()).abs().max().item()
+        tol = (BWD_F32_ATOL if dtype == "float32" else
+               BWD_BF16_REL * max(w.float().abs().max().item(), 1.0))
+        check(e <= tol, f"flash_bwd != plain at {case} {dtype}: max |d{name}"
+              f" diff| {e:.3g} > {tol:.3g}")
+        err = max(err, e)
+    return err, lse_err
+
+
+def _bwd_bound(case, dtype) -> tuple[float, str]:
+    """q, k, v, o, dO and the LSE read once, dq, dk, dv written once;
+    10 * D flops a live (q, k) pair and head (S, dP, dV, dK, dQ)."""
+    b, s, h, kv, d, window, _ = case
+    size = 2 if dtype == "bfloat16" else 4
+    n_bytes = (4 * b * s * h * d + 4 * b * s * kv * d) * size + b * h * s * 4
+    return bound(n_bytes, 10 * b * h * d * _live_pairs(s, window),
+                 BF16_TENSOR_OPS_PER_S)
+
+
+def check_flash_bwd(gen, dev) -> dict:
+    """Phase 7, the backward.  Returns the kernel's record (launches filled
+    in by phase 11)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    max_err = {"float32": 0.0, "bfloat16": 0.0}
+    max_lse = 0.0
+    cases = BWD_CASES + list(BWD_LAYERS.values())
+    for case in cases:
+        for dtype in ("float32", "bfloat16"):
+            err, lse_err = _bwd_case(case, dtype, gen, dev)
+            max_err[dtype] = max(max_err[dtype], err)
+            max_lse = max(max_lse, lse_err)
+        torch.cuda.empty_cache()
+
+    # times at the training layer shapes, bf16 (the training path's type)
+    times = {}
+    for name, case in BWD_LAYERS.items():
+        *_, window, cap = case
+        kw = dict(window=window, softcap=cap)
+        qs, k, v, o, do, lse = _bwd_inputs(case, "bfloat16", gen, dev)
+        ms = cuda_ms(lambda: flash_attention.flash_attention_bwd(
+            qs, k, v, o, do, lse, **kw), reps=3, warmup=1)
+        plain_ms = cuda_ms(lambda: ref.flash_attention_bwd_ref(
+            qs, k, v, o, do, lse, **kw), reps=2, warmup=1)
+        library_ms = None
+        if window == 0 and cap == 0:
+            # torch autograd through causal GQA SDPA on the scaled q
+            # (scale 1), heads-major leaves made outside the timed region;
+            # never called by the port
+            leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (qs, k, v)]
+            out = F.scaled_dot_product_attention(
+                *leaves, is_causal=True, enable_gqa=True, scale=1.0)
+            do_t = do.transpose(1, 2)
+            library_ms = cuda_ms(lambda: torch.autograd.grad(
+                out, leaves, do_t, retain_graph=True), reps=3, warmup=1)
+            del out, leaves
+        times[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                           **dict(zip(("bound_ms", "bound_by"),
+                                      _bwd_bound(case, "bfloat16"))))
+        del qs, k, v, o, do, lse
+        torch.cuda.empty_cache()
+    for name, t in times.items():
+        b, s, h, kv, d, window, cap = BWD_LAYERS[name]
+        lib = ("" if t["library_ms"] is None else
+               f", SDPA backward {t['library_ms']:.4f}")
+        print(f"flash_attention_bwd: {name} B={b} S={s} H={h} KV={kv} D={d} "
+              f"window={window} softcap={cap} bf16: {t['ms']:.4f} ms (plain "
+              f"{t['plain_ms']:.4f}{lib}; bound {t['bound_ms']:.4f} by "
+              f"{t['bound_by']}, {t['ms'] / t['bound_ms']:.1f}x)")
+    print(f"flash_attention_bwd: max |kernel - plain| f32 "
+          f"{max_err['float32']:.3g}, bf16 {max_err['bfloat16']:.3g}; forward "
+          f"LSE max |diff| {max_lse:.3g}, output unchanged, over "
+          f"{len(cases)} shapes x 2 dtypes")
+    glob = times["gemma3_4b_global"]
+    return dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/models/layers.py:268",
+        jax="repro.models.layers._flash_vjp_bwd (the custom VJP's backward, "
+            "jnp, no pallas_call)",
+        max_abs_err=max(max_err.values()), max_abs_err_f32=max_err["float32"],
+        max_abs_err_bf16=max_err["bfloat16"], lse_max_abs_err=max_lse,
+        ms=glob["ms"], kernel_ms=glob["ms"], plain_ms=glob["plain_ms"],
+        bound_ms=glob["bound_ms"], bound_by=glob["bound_by"],
+        library_ms=glob["library_ms"], layers=times,
+        shape=dict(zip(("B", "S", "H", "KV", "D", "window", "softcap"),
+                       BWD_LAYERS["gemma3_4b_global"]), dtype="bfloat16"))
+
+
 # --------------------------------------------------------------------------
 # phase 8: gemma2_9b serving at full width and depth
 # --------------------------------------------------------------------------
@@ -1225,6 +1434,159 @@ def serve_lm(dev) -> dict:
     del engine, params, model, plain
     torch.cuda.empty_cache()
     return info
+
+
+# --------------------------------------------------------------------------
+# phase 11: LM training, gemma3_4b at full width and depth; 11b: resume
+# --------------------------------------------------------------------------
+
+def _rel_l2(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _loss_and_grads(cfg, params, batch, impl) -> dict:
+    """One loss-and-gradient evaluation through the ``impl`` attention
+    pair: the loss, the global grad norm and three leaves' gradients."""
+    import torch
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import global_norm
+    names = [n for n, _ in params.named_parameters()]
+    last_global = max(i for i in range(cfg.n_layers)
+                      if cfg.block_kind(i) == "global")
+    keep = ("embed", "layers.0.attn.wq", f"layers.{last_global}.mlp.w_down")
+    loss, _ = build_model(cfg, impl=impl).loss_fn(params, batch)
+    grads = dict(zip(names, torch.autograd.grad(loss,
+                                                list(params.parameters()))))
+    out = dict(loss=loss.item(), gnorm=global_norm(grads).item(),
+               leaves={k: grads[k] for k in keep})
+    del grads, loss
+    return out
+
+
+def train_lm(dev, card: str) -> dict:
+    """Phase 11 on the card ``card`` (name, power limit).  Returns what it
+    measured, the kernels' launches included."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.data.loader import LoaderConfig, ShardedLoader
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import build_model
+
+    torch.cuda.empty_cache()
+    cfg = cfgbase.get_config(TRAIN_ARCH)
+    # the kernel pair against the plain pair, on the weights train() starts
+    # from (the same seed) and its first batch
+    gen = torch.Generator(dev)
+    gen.manual_seed(TRAIN_SEED)
+    params = build_model(cfg).init(gen)
+    n_params = sum(p.numel() for p in params.parameters())
+    check(cfg.n_layers == 34 and n_params == cfg.param_count() + cfg.d_model,
+          f"{TRAIN_ARCH}: {cfg.n_layers} layers, {n_params} parameters")
+    batch = ShardedLoader(LoaderConfig(
+        global_batch=TRAIN_BATCH, seq_len=TRAIN_S, vocab_size=cfg.vocab_size,
+        seed=TRAIN_SEED)).next_batch()
+    (kern, kern_s) = _timed(lambda: _loss_and_grads(cfg, params, batch,
+                                                    "cuda"))
+    (plain, plain_s) = _timed(lambda: _loss_and_grads(cfg, params, batch,
+                                                      "torch"))
+    loss_diff = abs(kern["loss"] - plain["loss"])
+    gnorm_rel = abs(kern["gnorm"] - plain["gnorm"]) / plain["gnorm"]
+    leaf_rel = {k: _rel_l2(kern["leaves"][k], plain["leaves"][k])
+                for k in kern["leaves"]}
+    del params, kern["leaves"], plain["leaves"]
+    torch.cuda.empty_cache()
+    print(f"train: first batch, kernel vs plain attention: loss "
+          f"{kern['loss']:.6f} / {plain['loss']:.6f} (|diff| "
+          f"{loss_diff:.3g}), grad norm {kern['gnorm']:.6g} / "
+          f"{plain['gnorm']:.6g} (rel {gnorm_rel:.3g}), gradient relative "
+          f"L2 {', '.join(f'{k} {v:.3g}' for k, v in leaf_rel.items())}; "
+          f"{kern_s:.2f} s / {plain_s:.2f} s")
+    check(loss_diff <= TRAIN_LOSS_ATOL and gnorm_rel <= TRAIN_GNORM_REL and
+          all(v <= TRAIN_GRAD_REL_L2 for v in leaf_rel.values()),
+          f"{TRAIN_ARCH} first batch, kernel vs plain attention: loss |diff| "
+          f"{loss_diff:.3g} (limit {TRAIN_LOSS_ATOL}), grad norm rel "
+          f"{gnorm_rel:.3g} (limit {TRAIN_GNORM_REL}), leaves {leaf_rel} "
+          f"(limit {TRAIN_GRAD_REL_L2})")
+
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.reset_launches()
+    out = train(TRAIN_ARCH, reduced=False, steps=TRAIN_STEPS,
+                global_batch=TRAIN_BATCH, seq_len=TRAIN_S, grad_accum=1,
+                ckpt_dir=None, seed=TRAIN_SEED, log_every=1, device=dev)
+    fwd = dict(flash_attention.LAUNCHES_BY_DTYPE)
+    bwd = dict(flash_attention.LAUNCHES_BWD_BY_DTYPE)
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    nc, rem = cfg.n_layers // len(cfg.block_pattern), \
+        cfg.n_layers % len(cfg.block_pattern)
+    want_fwd = TRAIN_STEPS * (2 * nc * len(cfg.block_pattern) + rem)
+    check(all(np.isfinite(hist)) and hist[-1] < hist[0],
+          f"{TRAIN_ARCH} losses {hist}: not finite and falling")
+    check(fwd == {"bfloat16": want_fwd, "float32": 0},
+          f"forward kernel launches {fwd} over {TRAIN_STEPS} steps, not "
+          f"{want_fwd // TRAIN_STEPS} bf16 a step")
+    check(bwd == {"bfloat16": TRAIN_STEPS * cfg.n_layers, "float32": 0},
+          f"backward kernel launches {bwd} over {TRAIN_STEPS} steps, not "
+          f"{cfg.n_layers} bf16 a step")
+    tokens = TRAIN_BATCH * TRAIN_S
+    secs = out["seconds"]
+    steady = secs[1:]
+    info = dict(
+        card=card, arch=TRAIN_ARCH, layers=cfg.n_layers, parameters=n_params,
+        steps=TRAIN_STEPS, global_batch=TRAIN_BATCH, seq_len=TRAIN_S,
+        losses=hist, step_s=secs, tokens_per_step=tokens,
+        tok_per_s=[tokens / t for t in secs],
+        steady_step_s=sum(steady) / len(steady),
+        steady_tok_per_s=tokens * len(steady) / sum(steady),
+        peak_bytes=peak, flash_fwd_launches=fwd, flash_bwd_launches=bwd,
+        first_batch=dict(loss_kernel=kern["loss"], loss_plain=plain["loss"],
+                         gnorm_kernel=kern["gnorm"],
+                         gnorm_plain=plain["gnorm"], loss_abs_diff=loss_diff,
+                         gnorm_rel_diff=gnorm_rel, grad_rel_l2=leaf_rel,
+                         kernel_s=kern_s, plain_s=plain_s))
+    for i, (l, t) in enumerate(zip(hist, secs)):
+        print(f"train: step {i} loss {l:.4f} {t:.3f} s {tokens / t:.1f} "
+              f"tokens/s")
+    print(f"train: {TRAIN_ARCH} {n_params} parameters, B={TRAIN_BATCH} "
+          f"S={TRAIN_S}: steps 1-{TRAIN_STEPS - 1} {info['steady_step_s']:.3f}"
+          f" s each, {info['steady_tok_per_s']:.1f} tokens/s; peak memory "
+          f"{peak / 1e9:.3f} GB; flash launches forward {fwd}, backward "
+          f"{bwd}; on {card}")
+    del out
+    torch.cuda.empty_cache()
+    return info
+
+
+def resume_lm(dev) -> dict:
+    """Phase 11b: 4 steps straight against 2 steps, a checkpoint and a
+    resume for 2 more, reduced gemma3_4b on the card; the losses must be
+    equal and the checkpoint must verify."""
+    import torch
+    from repro_torch.launch.train import train
+    from repro_torch.train import checkpoint as ckpt
+    kw = dict(reduced=True, global_batch=TRAIN_BATCH, seq_len=RESUME_SEQ,
+              log_every=100, device=dev)
+    straight = train(TRAIN_ARCH, steps=4, **kw)["history"]
+    (ROOT / "build").mkdir(exist_ok=True)
+    ck = tempfile.mkdtemp(prefix="smoke_ckpt_", dir=ROOT / "build")
+    try:
+        train(TRAIN_ARCH, steps=2, ckpt_dir=ck, ckpt_every=2, **kw)
+        saved = ckpt.latest_valid(ck)
+        check(saved is not None and saved.endswith("step_0000000002") and
+              ckpt.verify(saved), f"resume: no valid step-2 checkpoint in "
+              f"{ck} ({saved})")
+        resumed = train(TRAIN_ARCH, steps=4, ckpt_dir=ck, ckpt_every=10,
+                        **kw)["history"]
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    check(resumed == straight[2:], f"resume: losses {resumed} after the "
+          f"checkpoint != the straight run's {straight[2:]}")
+    print(f"train: resume of reduced {TRAIN_ARCH} at {RESUME_SEQ} tokens: "
+          f"losses {resumed} equal the straight run's")
+    torch.cuda.empty_cache()
+    return dict(straight=straight, resumed=resumed)
 
 
 # --------------------------------------------------------------------------
@@ -1502,9 +1864,10 @@ def main() -> int:
     del forest, syd, result
     torch.cuda.empty_cache()
 
-    # ---- 7. the flash kernel against its plain version
+    # ---- 7. the flash kernels against their plain versions
     t0 = time.perf_counter()
     flash_rec = check_flash(gen, dev)
+    bwd_rec = check_flash_bwd(gen, dev)
     times["flash_s"] = time.perf_counter() - t0
 
     # ---- 8. gemma2_9b serving at full width and depth
@@ -1535,6 +1898,19 @@ def main() -> int:
     times["farm_model_s"] = time.perf_counter() - t0
     print(json.dumps({"farm_model": model}))
 
+    # ---- 11. LM training, gemma3_4b at full width and depth; 11b. resume
+    t0 = time.perf_counter()
+    trained_lm = train_lm(dev, card)
+    times["lm_train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resumed = resume_lm(dev)
+    times["lm_resume_s"] = time.perf_counter() - t0
+    bwd_rec["launches"] = trained_lm["flash_bwd_launches"]["bfloat16"]
+    flash_rec["launches_by_path"] = dict(
+        serve=lm["flash_launches"],
+        train=trained_lm["flash_fwd_launches"]["bfloat16"])
+    print(json.dumps({"train": dict(trained_lm, resume=resumed)}))
+
     print(json.dumps({"ensemble": dict(
         trees=FOREST_TREES, workers=FOREST_WORKERS,
         trees_per_s=trained["trees_per_s"], train_s=trained["train_s"],
@@ -1545,7 +1921,7 @@ def main() -> int:
         chaos=chaos)}))
     print(json.dumps({"phase_seconds": times}))
     print(json.dumps({"kernels": [hist_rec, gain_rec, infer_rec,
-                                  flash_rec]}))
+                                  flash_rec, bwd_rec]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

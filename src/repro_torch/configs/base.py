@@ -21,11 +21,12 @@ JAX_ARCH_IDS = (
     "yadt",
 )
 #: The ported LMs: global/local attention with a dense MLP.
-ARCH_IDS = ("gemma2_9b", "yi_6b")
+ARCH_IDS = ("gemma2_9b", "yi_6b", "gemma3_4b", "phi4_mini")
 #: The ported tree workload (``configs/yadt.py``), no LM.
 TREE_ARCH_IDS = ("yadt",)
 NOT_PORTED = ("ROADMAP.md, the other architectures and block kinds (MoE, "
-              "RWKV, RG-LRU, frontends)")
+              "RWKV, RG-LRU, frontends: llama4_scout, llava_next_34b, "
+              "musicgen_medium, phi35_moe, recurrentgemma_2b, rwkv6_3b)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,1 +1,2 @@
-"""Data substrate: QUEST synthetic generator and Table-1 stand-ins."""
+"""Data substrate: QUEST synthetic generator, Table-1 stand-ins and the
+sharded LM token loader."""

@@ -20,7 +20,8 @@ import tempfile
 import threading
 from pathlib import Path
 
-KERNELS = ("histogram", "split_gain", "tree_infer", "flash_attention")
+KERNELS = ("histogram", "split_gain", "tree_infer", "flash_attention",
+           "flash_attention_bwd")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -29,9 +30,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # -fmad=false: no fused multiply-add contraction, so the split-gain kernel
 # rounds every product and sum as its torch specification does (and the
 # histogram and traversal kernels, built so since they were written).  The
-# flash kernel is two chains of dot products: it keeps the contraction,
-# which halves its instruction count, and is held to a tolerance.
-FMA_KERNELS = ("flash_attention",)
+# flash kernels (forward and backward) are chains of dot products: they keep
+# the contraction, which halves their instruction count, and are held to a
+# tolerance.
+FMA_KERNELS = ("flash_attention", "flash_attention_bwd")
 
 
 def nvcc_flags(name: str) -> tuple[str, ...]:

@@ -16,7 +16,11 @@
 //     p = 1 there and a later tile's corr = exp(-1e30 - m) = 0 wipes it, as
 //     in the reference;
 //   * query head h reads KV head h / (H / KV) (heads-major GQA);
-//   * out = acc / max(l, 1e-30), written in q's dtype.
+//   * out = acc / max(l, 1e-30), written in q's dtype;
+//   * when the caller passes an lse buffer (training: the backward kernel of
+//     csrc/flash_attention_bwd.cu reads it), each row's log-sum-exp
+//     m + log(max(l, 1e-30)) in natural-log units of the softcapped, masked
+//     logits, f32, (B, H, Sq); serving passes none and writes nothing more.
 // Layouts: q and out (B, Sq, H, D), k and v (B, Sk, KV, D), contiguous, the
 // JAX layout with no transposes; D a multiple of 8 up to 256.
 //
@@ -121,8 +125,9 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
 template <int DMAX>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int H,
-              int KV, int Sq, int Sk, int D, int window, float softcap) {
+              const float* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, int H, int KV, int Sq, int Sk, int D,
+              int window, float softcap) {
   constexpr int DJ = DMAX / 16;          // accumulator columns per thread
   extern __shared__ float smem[];
   const int ld = D + 1;
@@ -258,13 +263,15 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       const int d = tx + 16 * j;
       if (d < D) row[d] = acc[i][j] / denom;
     }
+    if (lse != nullptr && tx == 0)
+      lse[(int64_t)blockIdx.y * Sq + qp] = m[i] + logf(denom);
   }
 }
 
 template <int DMAX>
 static int launch(const float* q, const float* k, const float* v, float* o,
-                  int B, int Sq, int Sk, int H, int KV, int D, int window,
-                  float softcap, cudaStream_t stream) {
+                  float* lse, int B, int Sq, int Sk, int H, int KV, int D,
+                  int window, float softcap, cudaStream_t stream) {
   const size_t smem =
       ((size_t)(BQ + 2 * BK) * (D + 1) + (size_t)BQ * (BK + 1)) *
       sizeof(float);
@@ -274,7 +281,7 @@ static int launch(const float* q, const float* k, const float* v, float* o,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)(B * H));
   flash_fwd_f32<DMAX><<<grid, THREADS, smem, stream>>>(
-      q, k, v, o, H, KV, Sq, Sk, D, window, softcap);
+      q, k, v, o, lse, H, KV, Sq, Sk, D, window, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -296,6 +303,7 @@ constexpr int STAGES = 2;            // K/V ring depth
 constexpr int PANEL = 64 * 64 * 2;   // one 64 x 64 bf16 box (8 KB)
 constexpr int BOX[4] = {64, 1, 64, 1};
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // Dynamic shared memory of a block at padded head dim dp: 1 KB of slack to
 // align the tiles to the 1,024-byte swizzle atom, Q (2 x dp/64 panels), K
@@ -580,9 +588,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap,
-                __nv_bfloat16* __restrict__ o, const int* __restrict__ plan,
-                int H, int KV, int Sq, int Sk, int D, int window,
-                float softcap) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                const int* __restrict__ plan, int H, int KV, int Sq, int Sk,
+                int D, int window, float softcap) {
   constexpr int NP = DP / 64;          // 64-column panels of a tile
   constexpr int NO = DP / 2;           // O accumulator floats a thread
   extern __shared__ uint8_t smem_raw[];
@@ -756,6 +764,12 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
     }
     const float den0 = fmaxf(l0, 1e-30f);
     const float den1 = fmaxf(l1, 1e-30f);
+    // the row max is in log2 units: m * ln 2 is the natural-log max
+    if (lse != nullptr && (lane & 3) == 0) {
+      float* lrow = lse + (int64_t)blockIdx.x * Sq;
+      if (r0 < Sq) lrow[r0] = m0 * LN2 + logf(den0);
+      if (r0 + 8 < Sq) lrow[r0 + 8] = m1 * LN2 + logf(den1);
+    }
     const int64_t ld = (int64_t)H * D;
     __nv_bfloat16* row0 = o + ((int64_t)b * Sq + r0) * ld + (int64_t)h * D;
     __nv_bfloat16* row1 = row0 + 8 * ld;
@@ -819,16 +833,17 @@ static int encode(CUtensorMap* map, const void* ptr, const uint64_t* dims,
 
 template <int DP>
 static int launch(const CUtensorMap& qm, const CUtensorMap& km,
-                  const CUtensorMap& vm, void* o, const int* plan,
-                  int n_tiles, int B, int Sq, int Sk, int H, int KV, int D,
-                  int window, float softcap, int smem, cudaStream_t stream) {
+                  const CUtensorMap& vm, void* o, float* lse,
+                  const int* plan, int n_tiles, int B, int Sq, int Sk, int H,
+                  int KV, int D, int window, float softcap, int smem,
+                  cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_wgmma<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)(B * H), (unsigned)n_tiles);
   flash_fwd_wgmma<DP><<<grid, THREADS, smem, stream>>>(
-      qm, km, vm, (__nv_bfloat16*)o, plan, H, KV, Sq, Sk, D, window,
+      qm, km, vm, (__nv_bfloat16*)o, lse, plan, H, KV, Sq, Sk, D, window,
       softcap);
   return (int)cudaGetLastError();
 }
@@ -839,11 +854,12 @@ static int launch(const CUtensorMap& qm, const CUtensorMap& km,
 // C interface
 // ===========================================================================
 
+// lse: null, or (B, H, Sq) f32 for each row's log-sum-exp (both launches).
 extern "C" int flash_attention_f32_launch(const void* q, const void* k,
-                                          const void* v, void* o, int B,
-                                          int Sq, int Sk, int H, int KV,
-                                          int D, int window, float softcap,
-                                          void* stream) {
+                                          const void* v, void* o, void* lse,
+                                          int B, int Sq, int Sk, int H,
+                                          int KV, int D, int window,
+                                          float softcap, void* stream) {
   if (D < 8 || D > 256 || D % 8 || KV < 1 || H % KV || B * H > 65535 ||
       Sq < 1 || Sk < 1 || window < 0)
     return (int)cudaErrorInvalidValue;
@@ -851,13 +867,13 @@ extern "C" int flash_attention_f32_launch(const void* q, const void* k,
   const float *fq = (const float*)q, *fk = (const float*)k,
               *fv = (const float*)v;
   if (D <= 64)
-    return scalar::launch<64>(fq, fk, fv, (float*)o, B, Sq, Sk, H, KV, D,
-                              window, softcap, s);
+    return scalar::launch<64>(fq, fk, fv, (float*)o, (float*)lse, B, Sq,
+                              Sk, H, KV, D, window, softcap, s);
   if (D <= 128)
-    return scalar::launch<128>(fq, fk, fv, (float*)o, B, Sq, Sk, H, KV, D,
-                               window, softcap, s);
-  return scalar::launch<256>(fq, fk, fv, (float*)o, B, Sq, Sk, H, KV, D,
-                             window, softcap, s);
+    return scalar::launch<128>(fq, fk, fv, (float*)o, (float*)lse, B, Sq,
+                              Sk, H, KV, D, window, softcap, s);
+  return scalar::launch<256>(fq, fk, fv, (float*)o, (float*)lse, B, Sq,
+                              Sk, H, KV, D, window, softcap, s);
 }
 
 // The geometry comes from the wrapper (kernels/flash_attention.py:
@@ -866,11 +882,12 @@ extern "C" int flash_attention_f32_launch(const void* q, const void* k,
 // the shared-memory bytes; plan is a device array of n_tiles (q0, lo, hi).
 // What the kernel is not built for is refused with ERR_GEOMETRY.
 extern "C" int flash_attention_bf16_launch(
-    const void* q, const void* k, const void* v, void* o, const int* plan,
-    int n_tiles, int B, int Sq, int Sk, int H, int KV, int D, int window,
-    float softcap, const uint64_t* q_dims, const uint64_t* q_strides,
-    const uint64_t* kv_dims, const uint64_t* kv_strides, const uint32_t* box,
-    int d_pad, int smem, void* stream) {
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const int* plan, int n_tiles, int B, int Sq, int Sk, int H, int KV,
+    int D, int window, float softcap, const uint64_t* q_dims,
+    const uint64_t* q_strides, const uint64_t* kv_dims,
+    const uint64_t* kv_strides, const uint32_t* box, int d_pad, int smem,
+    void* stream) {
   if (D < 8 || D > 256 || D % 8 || KV < 1 || H % KV || Sq < 1 || Sk < 1 ||
       window < 0 || n_tiles < 1 || n_tiles > 65535)
     return (int)cudaErrorInvalidValue;
@@ -890,17 +907,17 @@ extern "C" int flash_attention_bf16_launch(
   const cudaStream_t s = (cudaStream_t)stream;
   switch (d_pad) {
     case 64:
-      return tc::launch<64>(qm, km, vm, o, plan, n_tiles, B, Sq, Sk, H, KV,
-                            D, window, softcap, smem, s);
+      return tc::launch<64>(qm, km, vm, o, (float*)lse, plan, n_tiles, B,
+                            Sq, Sk, H, KV, D, window, softcap, smem, s);
     case 128:
-      return tc::launch<128>(qm, km, vm, o, plan, n_tiles, B, Sq, Sk, H, KV,
-                             D, window, softcap, smem, s);
+      return tc::launch<128>(qm, km, vm, o, (float*)lse, plan, n_tiles, B,
+                            Sq, Sk, H, KV, D, window, softcap, smem, s);
     case 192:
-      return tc::launch<192>(qm, km, vm, o, plan, n_tiles, B, Sq, Sk, H, KV,
-                             D, window, softcap, smem, s);
+      return tc::launch<192>(qm, km, vm, o, (float*)lse, plan, n_tiles, B,
+                            Sq, Sk, H, KV, D, window, softcap, smem, s);
     default:
-      return tc::launch<256>(qm, km, vm, o, plan, n_tiles, B, Sq, Sk, H, KV,
-                             D, window, softcap, smem, s);
+      return tc::launch<256>(qm, km, vm, o, (float*)lse, plan, n_tiles, B,
+                            Sq, Sk, H, KV, D, window, softcap, smem, s);
   }
 }
 

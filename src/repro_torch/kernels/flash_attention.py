@@ -1,13 +1,22 @@
-"""Wrapper of the CUDA flash-attention forward (``csrc/flash_attention.cu``).
+"""Wrappers of the CUDA flash-attention kernels: the forward
+(``csrc/flash_attention.cu``) and the backward
+(``csrc/flash_attention_bwd.cu``).
 
-Replaces the JAX package's Pallas ``flash_attention``: the same layout
-``(B, Sq, H, D)`` for q and the output and ``(B, Sk, KV, D)`` for k and v,
-and the same signature.  q is scaled by ``1/sqrt(D)`` in its own dtype
-before the launch, as the JAX function does before its ``pallas_call``.
-Each dtype has one kernel and no fallback to the other: bfloat16 goes to
-the tensor-core kernel (wgmma + TMA), float32 to the scalar one.  CUDA
-tensors only; the plain version is
+:func:`flash_attention` replaces the JAX package's Pallas
+``flash_attention``: the same layout ``(B, Sq, H, D)`` for q and the output
+and ``(B, Sk, KV, D)`` for k and v, and the same signature.  q is scaled by
+``1/sqrt(D)`` in its own dtype before the launch, as the JAX function does
+before its ``pallas_call``.  Each dtype has one kernel and no fallback to
+the other: bfloat16 goes to the tensor-core kernel (wgmma + TMA), float32
+to the scalar one.  CUDA tensors only; the plain version is
 :func:`repro_torch.kernels.ref.flash_attention_ref`.
+
+Training differentiates attention as the JAX custom VJP ``_flash`` does,
+on q already scaled: :func:`flash_attention_fwd` also returns each row's
+log-sum-exp, and :func:`flash_attention_bwd` (the counterpart of
+``repro.models.layers._flash_vjp_bwd``) returns dq, dk and dv from it.
+Their plain versions are ``ref.flash_attention_fwd_ref`` and
+``ref.flash_attention_bwd_ref``.
 
 The tensor-core kernel's geometry is computed here, in Python the CPU tests
 reach: :func:`tile_plan` (the live KV tiles of each query tile, heaviest
@@ -27,10 +36,13 @@ import torch
 
 from repro_torch.kernels import _build
 
-# Launches of the kernels in this process (the main path's proof of use):
-# all of them, and by dtype (bfloat16: tensor-core kernel, float32: scalar).
+# Launches of the forward kernels in this process (the main path's proof of
+# use): all of them, and by dtype (bfloat16: tensor-core kernel, float32:
+# scalar); those of the backward (one a flash_attention_bwd call), by dtype.
 LAUNCHES = 0
 LAUNCHES_BY_DTYPE = {"bfloat16": 0, "float32": 0}
+LAUNCHES_BWD = 0
+LAUNCHES_BWD_BY_DTYPE = {"bfloat16": 0, "float32": 0}
 # Launches from several threads: _LAUNCH_LOCK makes each kernel's
 # shared-memory opt-in (set before every launch) and its launch one step, so
 # another thread's lower opt-in cannot land between them; _COUNT_LOCK keeps
@@ -60,9 +72,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _U64 = ctypes.POINTER(ctypes.c_uint64)
 _U32 = ctypes.POINTER(ctypes.c_uint32)
-_F32_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]
-_BF16_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                  _U64, _U64, _U64, _U64, _U32, _I, _I, _P]
+_F32_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]
+_BF16_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                  _F, _U64, _U64, _U64, _U64, _U32, _I, _I, _P]
+_BWD_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                 _I, _I, _I, _F, _P]
 
 
 def _lib() -> ctypes.CDLL:
@@ -73,6 +87,15 @@ def _lib() -> ctypes.CDLL:
     lib.flash_attention_bf16_launch.restype = ctypes.c_int
     lib.flash_attention_error.argtypes = [ctypes.c_int]
     lib.flash_attention_error.restype = ctypes.c_char_p
+    return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.library("flash_attention_bwd")
+    lib.flash_attention_bwd_launch.argtypes = _BWD_ARGTYPES
+    lib.flash_attention_bwd_launch.restype = ctypes.c_int
+    lib.flash_attention_bwd_error.argtypes = [ctypes.c_int]
+    lib.flash_attention_bwd_error.restype = ctypes.c_char_p
     return lib
 
 
@@ -184,11 +207,28 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _count(dtype: str) -> None:
-    """Count one launch of the ``dtype`` kernel."""
+    """Count one launch of the ``dtype`` forward kernel."""
     global LAUNCHES
     with _COUNT_LOCK:
         LAUNCHES += 1
         LAUNCHES_BY_DTYPE[dtype] += 1
+
+
+def _count_bwd(dtype: str) -> None:
+    """Count one launch of the ``dtype`` backward."""
+    global LAUNCHES_BWD
+    with _COUNT_LOCK:
+        LAUNCHES_BWD += 1
+        LAUNCHES_BWD_BY_DTYPE[dtype] += 1
+
+
+def reset_launches() -> None:
+    """Set every count of this module to 0."""
+    global LAUNCHES, LAUNCHES_BWD
+    with _COUNT_LOCK:
+        LAUNCHES = LAUNCHES_BWD = 0
+        for counts in (LAUNCHES_BY_DTYPE, LAUNCHES_BWD_BY_DTYPE):
+            counts.update(bfloat16=0, float32=0)
 
 
 def _u64(values) -> ctypes.Array:
@@ -205,26 +245,50 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     new tensor.  Nothing is transposed: the kernels read the JAX layout.
     """
     check_shapes(q, k, v, window=window, softcap=softcap)
-    dev = q.device
-    if dev.type != "cuda" or k.device != dev or v.device != dev:
+    return flash_attention_fwd(scale_query(q), k, v, window=window,
+                               softcap=softcap)
+
+
+def _check_cuda(*tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"the CUDA flash attention takes CUDA tensors, got "
-                         f"{q.device}, {k.device}, {v.device}")
-    b, sq, h, d = q.shape
-    sk, kv = k.shape[1], k.shape[2]
-    bf16 = q.dtype == torch.bfloat16
-    geo = tma_geometry(b, sq, sk, h, kv, d) if bf16 else None
-    qs = scale_query(q).contiguous()
-    k, v = k.contiguous(), v.contiguous()
-    for t in (qs, k, v):
+                         f"{', '.join(str(t.device) for t in tensors)}")
+
+
+def _check_aligned(*tensors: torch.Tensor) -> None:
+    for t in tensors:
         if t.data_ptr() % 16:
-            raise ValueError("q, k and v must start on a 16-byte boundary")
+            raise ValueError("the flash attention's tensors must start on a "
+                             "16-byte boundary")
+
+
+def flash_attention_fwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, window: int = 0, softcap: float = 0.0,
+                        with_lse: bool = False):
+    """The forward kernel on q already scaled by ``1/sqrt(D)``: the output
+    (B, Sq, H, D), and with ``with_lse`` also each row's log-sum-exp
+    ``m + log(max(l, 1e-30))`` of the softcapped, masked logits, natural-log
+    units, f32 (B, H, Sq) (what :func:`flash_attention_bwd` takes)."""
+    check_shapes(qs, k, v, window=window, softcap=softcap)
+    _check_cuda(qs, k, v)
+    b, sq, h, d = qs.shape
+    sk, kv = k.shape[1], k.shape[2]
+    bf16 = qs.dtype == torch.bfloat16
+    geo = tma_geometry(b, sq, sk, h, kv, d) if bf16 else None
+    qs, k, v = qs.contiguous(), k.contiguous(), v.contiguous()
+    _check_aligned(qs, k, v)
+    dev = qs.device
     out = torch.empty_like(qs)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+           if with_lse else None)
     if b == 0 or sq == 0:
-        return out
+        return (out, lse) if with_lse else out
     with _LAUNCH_LOCK, torch.cuda.device(dev):
         lib = _lib()
         stream = torch.cuda.current_stream(dev).cuda_stream
-        ptrs = (qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+        ptrs = (qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr() if with_lse else None)
         if bf16:
             plan = _plan_tensor(sq, sk, int(window), dev)
             err = lib.flash_attention_bf16_launch(
@@ -241,4 +305,57 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError("flash_attention launch failed: "
                            + lib.flash_attention_error(err).decode())
     _count("bfloat16" if bf16 else "float32")
-    return out
+    return (out, lse) if with_lse else out
+
+
+def check_bwd_shapes(qs, k, v, o, do, lse, *, window: int,
+                     softcap: float) -> None:
+    """What the backward takes (the forward's shapes, o and dO like q, lse
+    f32 (B, H, Sq)); raises on anything else."""
+    check_shapes(qs, k, v, window=window, softcap=softcap)
+    b, sq, h, _ = qs.shape
+    for name, t in (("o", o), ("dO", do)):
+        if t.shape != qs.shape or t.dtype != qs.dtype:
+            raise ValueError(f"{name} must be {tuple(qs.shape)} "
+                             f"{qs.dtype}, got {tuple(t.shape)} {t.dtype}")
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be ({b}, {h}, {sq}) float32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+
+
+def flash_attention_bwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                        *, window: int = 0, softcap: float = 0.0
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`flash_attention_fwd` at ``qs`` (q scaled by
+    ``1/sqrt(D)``; dq is with respect to it), given its output ``o``, the
+    output's gradient ``do`` and the forward's ``lse``.  f32 arithmetic
+    inside, results in the inputs' dtype; no atomics, so the same inputs
+    give the same bits."""
+    check_bwd_shapes(qs, k, v, o, do, lse, window=window, softcap=softcap)
+    _check_cuda(qs, k, v, o, do, lse)
+    b, sq, h, d = qs.shape
+    sk, kv = k.shape[1], k.shape[2]
+    if b * h > _MAX_GRID_Y:
+        raise ValueError(f"B * H = {b * h} blocks exceed the grid's "
+                         f"{_MAX_GRID_Y}")
+    qs, k, v, o, do, lse = (t.contiguous() for t in (qs, k, v, o, do, lse))
+    _check_aligned(qs, k, v, o, do, lse)
+    dev = qs.device
+    dq, dk, dv = (torch.empty_like(t) for t in (qs, k, v))
+    if b == 0 or sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    bf16 = qs.dtype == torch.bfloat16
+    with _LAUNCH_LOCK, torch.cuda.device(dev):
+        lib = _bwd_lib()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.flash_attention_bwd_launch(
+            int(bf16), *(t.data_ptr() for t in (qs, k, v, o, do, lse, delta,
+                                               dq, dk, dv)),
+            b, sq, sk, h, kv, d, int(window), float(softcap), stream)
+    if err:
+        raise RuntimeError("flash_attention_bwd launch failed: "
+                           + lib.flash_attention_bwd_error(err).decode())
+    _count_bwd("bfloat16" if bf16 else "float32")
+    return dq, dk, dv

@@ -8,7 +8,8 @@ import math
 import torch
 
 from repro_torch.core import entropy
-from repro_torch.kernels.flash_attention import check_shapes, scale_query
+from repro_torch.kernels.flash_attention import (
+    check_bwd_shapes, check_shapes, scale_query)
 from repro_torch.kernels.tree_infer import (
     COL_ATTR, COL_CHILD0, COL_CLASS, COL_HEAVY, COL_NCHILD, COL_SPLIT)
 
@@ -91,34 +92,119 @@ MASKED = -1e30
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, window: int = 0, softcap: float = 0.0,
-                        q_chunk: int = 1024) -> torch.Tensor:
+                        q_chunk: int = 1024, return_lse: bool = False):
     """(B, Sq, H, D) causal GQA attention, the function of the flash kernel:
-    q scaled in its dtype, logits in f32 (softcapped, masked with -1e30),
-    an exact softmax over each row's live keys, ``acc / max(l, 1e-30)`` in
-    q's dtype.  Rows go ``q_chunk`` at a time, and each chunk reads only
-    the keys its causal window can reach, so the logits stay small."""
+    q scaled in its dtype, then :func:`flash_attention_fwd_ref`.  With
+    ``return_lse`` also each row's log-sum-exp (B, H, Sq), f32."""
     check_shapes(q, k, v, window=window, softcap=softcap)
-    b, sq, h, d = q.shape
+    out, lse = flash_attention_fwd_ref(scale_query(q), k, v, window=window,
+                                       softcap=softcap, q_chunk=q_chunk)
+    return (out, lse) if return_lse else out
+
+
+def _live_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, sk: int,
+               window: int) -> torch.Tensor:
+    """The (q, k) mask of the JAX ``_attn_mask``: causal, the window, and
+    keys before Sk."""
+    mask = (q_pos[:, None] >= k_pos[None, :]) & (k_pos < sk)[None, :]
+    if window > 0:
+        mask &= q_pos[:, None] - k_pos[None, :] < window
+    return mask
+
+
+def flash_attention_fwd_ref(qs: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, window: int = 0,
+                            softcap: float = 0.0, q_chunk: int = 1024
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of ``flash_attention.flash_attention_fwd`` on q
+    already scaled: logits in f32 (softcapped, masked with -1e30), an exact
+    softmax over each row's live keys, ``acc / max(l, 1e-30)`` in q's dtype,
+    and each row's ``lse = m + log(max(l, 1e-30))`` (natural log, f32,
+    (B, H, Sq); ``m + log(l)`` of the JAX ``_flash_fwd``'s stats).  Rows go
+    ``q_chunk`` at a time, and each chunk reads only the keys its causal
+    window can reach, so the logits stay small."""
+    check_shapes(qs, k, v, window=window, softcap=softcap)
+    b, sq, h, d = qs.shape
     sk, kv = k.shape[1], k.shape[2]
     g = h // kv
-    qf = scale_query(q).reshape(b, sq, kv, g, d).float()
+    qf = qs.reshape(b, sq, kv, g, d).float()
     kf, vf = k.float(), v.float()
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, h, d), dtype=qs.dtype, device=qs.device)
+    lse = torch.empty((b, kv, g, sq), dtype=torch.float32, device=qs.device)
     for s0 in range(0, sq, q_chunk):
         s1 = min(s0 + q_chunk, sq)
         k0 = max(s0 - window + 1, 0) if window > 0 else 0
-        q_pos = torch.arange(s0, s1, device=q.device)
-        k_pos = torch.arange(k0, s1, device=q.device)
+        q_pos = torch.arange(s0, s1, device=qs.device)
+        k_pos = torch.arange(k0, s1, device=qs.device)
         logits = torch.einsum("bqkgd,bskd->bkgqs", qf[:, s0:s1], kf[:, k0:s1])
         if softcap > 0:
             logits = torch.tanh(logits / softcap) * softcap
-        mask = q_pos[:, None] >= k_pos[None, :]
-        if window > 0:
-            mask &= q_pos[:, None] - k_pos[None, :] < window
-        logits = torch.where(mask, logits, MASKED)
-        p = torch.exp(logits - logits.amax(-1, keepdim=True))
+        logits = torch.where(_live_mask(q_pos, k_pos, sk, window), logits,
+                             MASKED)
+        m = logits.amax(-1, keepdim=True)
+        p = torch.exp(logits - m)
         acc = torch.einsum("bkgqs,bskd->bqkgd", p, vf[:, k0:s1])
-        l_sum = p.sum(-1).permute(0, 3, 1, 2)[..., None]
-        out[:, s0:s1] = (acc / torch.clamp_min(l_sum, 1e-30)).reshape(
-            b, s1 - s0, h, d).to(q.dtype)
-    return out
+        l_sum = torch.clamp_min(p.sum(-1), 1e-30)             # (b,kv,g,q)
+        lse[..., s0:s1] = m[..., 0] + torch.log(l_sum)
+        out[:, s0:s1] = (acc / l_sum.permute(0, 3, 1, 2)[..., None]).reshape(
+            b, s1 - s0, h, d).to(qs.dtype)
+    return out, lse.reshape(b, h, sq)
+
+
+def flash_attention_bwd_ref(qs: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, lse: torch.Tensor, *,
+                            window: int = 0, softcap: float = 0.0,
+                            q_chunk: int = 512, kv_chunk: int = 512
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The plain version of ``flash_attention.flash_attention_bwd``: the
+    JAX ``_flash_vjp_bwd`` (FlashAttention-2 recompute) block for block.
+
+    An outer loop over ``kv_chunk`` key blocks accumulates each block's dk
+    and dv over the live query blocks of the JAX ``_q_range``; dq adds up in
+    an f32 (B, Sq, H, D) buffer.  p is recomputed per (q, kv) block as
+    ``exp(logit - lse)`` (the JAX ``exp(logit - m) / l``), so no (Sq, Sk)
+    array is ever made.  f32 inside, results in the inputs' dtype.
+    """
+    check_bwd_shapes(qs, k, v, o, do, lse, window=window, softcap=softcap)
+    b, sq, h, d = qs.shape
+    sk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    dev = qs.device
+    qf = qs.reshape(b, sq, kv, g, d).float()
+    dof = do.reshape(b, sq, kv, g, d).float()
+    kf, vf = k.float(), v.float()
+    lse_r = lse.reshape(b, kv, g, sq)
+    delta = torch.einsum("bqkgd,bqkgd->bkgq", dof,
+                         o.reshape(b, sq, kv, g, d).float())
+    dq = torch.zeros((b, sq, kv, g, d), dtype=torch.float32, device=dev)
+    dk = torch.zeros((b, sk, kv, d), dtype=torch.float32, device=dev)
+    dv = torch.zeros_like(dk)
+    nq = -(-sq // q_chunk)
+    for k0 in range(0, sk, kv_chunk):
+        k1 = min(k0 + kv_chunk, sk)
+        k_pos = torch.arange(k0, k1, device=dev)
+        kb, vb = kf[:, k0:k1], vf[:, k0:k1]
+        lo = k0 // q_chunk
+        hi = (min((k0 + kv_chunk + window - 2) // q_chunk + 1, nq)
+              if window > 0 else nq)
+        for qi in range(lo, hi):
+            q0, q1 = qi * q_chunk, min((qi + 1) * q_chunk, sq)
+            qb, dob = qf[:, q0:q1], dof[:, q0:q1]
+            q_pos = torch.arange(q0, q1, device=dev)
+            raw = torch.einsum("bqkgd,bckd->bkgqc", qb, kb)
+            logits = (torch.tanh(raw / softcap) * softcap if softcap > 0
+                      else raw)
+            logits = torch.where(_live_mask(q_pos, k_pos, sk, window),
+                                 logits, MASKED)
+            p = torch.exp(logits - lse_r[..., q0:q1, None])
+            dp = torch.einsum("bqkgd,bckd->bkgqc", dob, vb)
+            dlog = p * (dp - delta[..., q0:q1, None])
+            if softcap > 0:
+                dlog = dlog * (1.0 - torch.square(torch.tanh(raw / softcap)))
+            dq[:, q0:q1] += torch.einsum("bkgqc,bckd->bqkgd", dlog, kb)
+            dk[:, k0:k1] += torch.einsum("bkgqc,bqkgd->bckd", dlog, qb)
+            dv[:, k0:k1] += torch.einsum("bkgqc,bqkgd->bckd", p, dob)
+    return (dq.reshape(b, sq, h, d).to(qs.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

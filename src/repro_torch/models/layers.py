@@ -1,4 +1,4 @@
-"""Core decoder layers, forward only: norms, RoPE, GQA attention, gated MLP.
+"""Core decoder layers: norms, RoPE, GQA attention, gated MLP.
 
 The port of ``repro.models.layers``.  Every layer is an ``init`` that makes
 a dict of tensors from an explicit ``torch.Generator`` plus an ``apply``
@@ -14,9 +14,12 @@ typed is rounded to the tensor's dtype first (:func:`_weak`).
 
 Full-sequence attention (:func:`blockwise_attention`) is the hand-written
 CUDA flash kernel on a CUDA tensor and its plain version on a CPU tensor
-(``repro_torch.kernels.ops``); ``impl`` pins one of the two.  Single-token
-attention against the cache (:func:`decode_attention`) is plain torch, as
-the JAX package's is jnp.
+(``repro_torch.kernels.ops``); ``impl`` pins one of the two.  Where autograd
+records it (training), it is :class:`_Flash`, the counterpart of the JAX
+custom VJP ``_flash``: the forward kernel that also writes each row's
+log-sum-exp, and the hand-written backward kernel (or, on the CPU, the
+plain pair).  Single-token attention against the cache
+(:func:`decode_attention`) is plain torch, as the JAX package's is jnp.
 """
 
 from __future__ import annotations
@@ -171,6 +174,37 @@ def qkv(p: Params, s: AttnSpec, x: torch.Tensor, positions: torch.Tensor):
     return q, k, v
 
 
+class _Flash(torch.autograd.Function):
+    """Attention of q already scaled by ``1/sqrt(D)``, differentiable: the
+    port of the JAX ``_flash`` custom VJP (``src/repro/models/layers.py``).
+
+    The forward runs the flash forward with its log-sum-exp and saves
+    ``(qs, k, v, o, lse)``; the backward recomputes the softmax from them
+    (the JAX ``_flash_vjp_bwd``) and returns dqs, dk and dv.  ``kernel``:
+    the CUDA kernel pair, else the plain pair of ``kernels.ref``.
+    """
+
+    @staticmethod
+    def forward(ctx, qs, k, v, window: int, softcap: float, kernel: bool):
+        kw = dict(window=window, softcap=softcap)
+        if kernel:
+            out, lse = _flash.flash_attention_fwd(qs, k, v, with_lse=True,
+                                                  **kw)
+        else:
+            out, lse = ref.flash_attention_fwd_ref(qs, k, v, **kw)
+        ctx.save_for_backward(qs, k, v, out, lse)
+        ctx.kw, ctx.kernel = kw, kernel
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        qs, k, v, out, lse = ctx.saved_tensors
+        bwd = (_flash.flash_attention_bwd if ctx.kernel
+               else ref.flash_attention_bwd_ref)
+        dq, dk, dv = bwd(qs, k, v, out, do, lse, **ctx.kw)
+        return dq, dk, dv, None, None, None
+
+
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, spec: AttnSpec, q_offset: int = 0,
                         impl: str | None = None) -> torch.Tensor:
@@ -180,19 +214,27 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``impl=None`` picks by device: the flash kernel on a CUDA tensor, the
     plain version on a CPU tensor; ``"cuda"``/``"torch"`` pin one.  Only
-    ``q_offset=0`` (the prefill) is supported.
+    ``q_offset=0`` (the prefill, and training) is supported.
+
+    Where autograd records the call it goes through :class:`_Flash`, with
+    q scaled outside it by an ordinary multiply, so that dq is rounded as
+    the JAX package's (a bf16 multiply outside its custom VJP) is.
     """
     if int(q_offset) != 0:
         raise NotImplementedError("blockwise_attention: q_offset must be 0 "
-                                  "(the full-sequence prefill)")
+                                  "(the full-sequence prefill and training)")
+    if impl not in (None, *IMPLS):
+        raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
     kw = dict(window=spec.window, softcap=spec.softcap)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        kernel = impl == "cuda" or (impl is None and ops.is_cuda(q))
+        return _Flash.apply(_flash.scale_query(q), k, v, spec.window,
+                            spec.softcap, kernel)
     if impl is None:
         return ops.flash_attention(q, k, v, **kw)
     if impl == "cuda":
         return _flash.flash_attention(q, k, v, **kw)
-    if impl == "torch":
-        return ref.flash_attention_ref(q, k, v, **kw)
-    raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
+    return ref.flash_attention_ref(q, k, v, **kw)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -1,13 +1,17 @@
-"""Decoder stack of the port, forward only: global/local attention blocks
-with a dense gated MLP.
+"""Decoder stack of the port: global/local attention blocks with a dense
+gated MLP.
 
 The port of ``repro.models.transformer``.  The JAX package stacks equal
 pattern positions under one ``lax.scan`` over cycles; here the stack is an
 ``nn.Module`` with one :class:`DecoderLayer` per layer, run by a plain loop
-(layer ``i`` has kind ``cfg.block_kind(i)``).  The remat policy has no
-counterpart in a forward-only port.  Block kinds ``rwkv`` and ``rglru``
-and MoE feed-forwards raise ``NotImplementedError``; they are never
-skipped.
+(layer ``i`` has kind ``cfg.block_kind(i)``).  Two full-sequence modes share
+the weights: :meth:`Transformer.forward`, the serving forward (no autograd,
+optionally capturing the cache), and :meth:`Transformer.forward_train`, the
+loss path, with the JAX remat policy: each whole cycle of
+``len(block_pattern)`` layers is rematerialised in the backward
+(``torch.utils.checkpoint``), the tail layers that fill no cycle are not.
+Block kinds ``rwkv`` and ``rglru`` and MoE feed-forwards raise
+``NotImplementedError``; they are never skipped.
 
 Weights keep the JAX ``(d_in, d_out)`` orientation; :func:`params_from_jax`
 copies a JAX param tree (as numpy arrays) into the stack.
@@ -19,7 +23,9 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import NOT_PORTED, ModelConfig
 from repro_torch.core.device import resolve_device
@@ -59,8 +65,7 @@ def check_ported(cfg: ModelConfig) -> None:
 
 
 def _pdict(tensors: Mapping[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in tensors.items()})
+    return nn.ParameterDict({k: nn.Parameter(v) for k, v in tensors.items()})
 
 
 class DecoderLayer(nn.Module):
@@ -103,17 +108,18 @@ class DecoderLayer(nn.Module):
 class Transformer(nn.Module):
     """Embedding, ``cfg.n_layers`` decoder layers, final norm, unembedding.
 
-    Parameters never require grad: the port serves, it does not train yet.
+    Every parameter is trainable; the serving entry points (``forward``,
+    ``model.prefill``, ``kvcache.decode_step``) run without autograd.
     """
 
     def __init__(self, cfg: ModelConfig, p: Mapping[str, Any]):
         super().__init__()
         check_ported(cfg)
         self.cfg = cfg
-        self.embed = nn.Parameter(p["embed"], requires_grad=False)
+        self.embed = nn.Parameter(p["embed"])
         self.final_norm = _pdict(p["final_norm"])
         self.lm_head = (None if cfg.tie_embeddings
-                        else nn.Parameter(p["lm_head"], requires_grad=False))
+                        else nn.Parameter(p["lm_head"]))
         self.layers = nn.ModuleList(
             DecoderLayer(cfg, cfg.block_kind(i), lp)
             for i, lp in enumerate(p["layers"]))
@@ -123,7 +129,9 @@ class Transformer(nn.Module):
         return self.embed.device
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embed[tokens.long()]
+        # F.embedding: its backward adds the rows' gradients without
+        # atomics (an index's adds in a fixed order), so steps repeat bitwise
+        x = F.embedding(tokens.long(), self.embed)
         if self.cfg.pos == "sinusoidal":
             pos = torch.arange(tokens.shape[1], device=tokens.device)
             x = x + layers.sinusoidal(pos, self.cfg.d_model)[None].to(x.dtype)
@@ -144,6 +152,38 @@ class Transformer(nn.Module):
                 entries.append(e)
         x = layers.norm_apply(self.final_norm, x, self.cfg.norm)
         return x, entries
+
+    def _cycle(self, x: torch.Tensor, positions: torch.Tensor, first: int,
+               impl: str | None) -> torch.Tensor:
+        for layer in self.layers[first:first + len(self.cfg.block_pattern)]:
+            x, _ = layer(x, positions, impl=impl)
+        return x
+
+    def forward_train(self, tokens: torch.Tensor, *, remat: bool = True,
+                      impl: str | None = None) -> torch.Tensor:
+        """Full-sequence forward of ``tokens`` (B, S) for the loss: the
+        hidden state after the final norm, recorded by autograd.
+
+        ``remat`` is the JAX ``remat``: each of the ``n_cycles`` whole
+        cycles is one ``torch.utils.checkpoint`` (non-reentrant), so the
+        backward recomputes it from its input and keeps none of its
+        activations; the tail layers keep theirs.  The attention forward
+        then runs twice for every layer of a cycle and once for a tail
+        layer.
+        """
+        x = self.embed_tokens(tokens)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        pat = len(self.cfg.block_pattern)
+        nc, _ = n_cycles(self.cfg)
+        for c in range(nc):
+            if remat:
+                x = checkpoint(self._cycle, x, positions, c * pat, impl,
+                               use_reentrant=False)
+            else:
+                x = self._cycle(x, positions, c * pat, impl)
+        for layer in self.layers[nc * pat:]:
+            x, _ = layer(x, positions, impl=impl)
+        return layers.norm_apply(self.final_norm, x, self.cfg.norm)
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         w = self.embed.T if self.cfg.tie_embeddings else self.lm_head

@@ -25,7 +25,12 @@ SLOTS, MAX_SEQ = 4, 8_192
 DECODE_POS = (7_000, 5_121, 4_096, 3_000)
 
 
-def profile_step(fn, *, top: int = 10) -> dict:
+def profile_step(fn, *, top: int = 10, groups=()) -> dict:
+    """Wall time of ``fn`` (after a warm-up call), then one profiled call:
+    device busy time and idle share, launches, the ``top`` costliest
+    kernels and host operators.  ``groups``: (name, substrings) pairs; each
+    kernel's device time goes to the first group with a substring in its
+    name, else to ``other`` (``device_ms_by_group``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as _profile
@@ -46,11 +51,19 @@ def profile_step(fn, *, top: int = 10) -> dict:
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
     host = [e for e in events if e.device_type == DeviceType.CPU]
+    by_group: dict[str, float] = {name: 0.0 for name, _ in groups}
+    by_group["other"] = 0.0
+    for e in kernels:
+        key = e.key.lower()
+        name = next((n for n, subs in groups
+                     if any(sub in key for sub in subs)), "other")
+        by_group[name] += e.self_device_time_total / 1e3
     return dict(
         wall_s=wall, profiled_wall_s=profiled_wall,
         device_busy_s=busy_s if kernels else None,
         device_idle_share=1 - busy_s / profiled_wall if kernels else None,
         device_launches=sum(e.count for e in kernels),
+        device_ms_by_group=by_group if groups else None,
         top_kernels=[dict(name=e.key[:80], count=e.count,
                           device_ms=e.self_device_time_total / 1e3)
                      for e in sorted(kernels, key=lambda e:

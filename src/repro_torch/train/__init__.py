@@ -1,2 +1,3 @@
-"""Training substrate.  Ported so far: the checkpoint directory GC that the
-model registry shares, and the heartbeat monitor the serving engine uses."""
+"""Training substrate: AdamW, the train step, checkpoints (whose staging
+GC the model registry shares) and the elastic control plane (heartbeat,
+straggler and farm-health monitors, mesh planning)."""

@@ -1,8 +1,13 @@
-"""Failure detection and straggler mitigation (host control plane).
+"""Failure detection, mesh replanning and straggler mitigation (host
+control plane).
 
   * :class:`HeartbeatMonitor` — hosts report liveness; a host silent for
     ``timeout`` (seconds, or engine ticks when the caller passes ``now``)
     is declared failed.
+  * :func:`plan_mesh` / :func:`rebatch_for_mesh` — for the surviving chip
+    count, the largest (pod, data, model) grid that keeps the model axis
+    at :data:`TP_ANCHOR`, and the global batch that keeps each data
+    replica's batch; plain functions of the counts.
   * :class:`StragglerMonitor` — per-step durations; hosts slower than
     ``factor`` x the running median get flagged, and their WS weights
     shrink.
@@ -10,9 +15,7 @@
     into both and returns the :class:`~repro_torch.core.scheduler.HealthWS`
     policy that schedules by them.
 
-A copy of those parts of the JAX package's ``train.elastic``; its mesh
-planning (``plan_mesh``, ``rebatch_for_mesh``) comes with the LM training
-path.
+A copy of the JAX package's ``train.elastic``.
 """
 
 from __future__ import annotations
@@ -20,9 +23,12 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import defaultdict, deque
+from typing import Sequence
 
 from repro_torch.core.scheduler import HealthWS
 from repro_torch.obs import metrics as obs_metrics
+
+TP_ANCHOR = 16   # model-axis width the fleet's divisibility is built on
 
 
 @dataclasses.dataclass
@@ -61,6 +67,36 @@ class HeartbeatMonitor:
     def alive(self, now: float | None = None) -> list[str]:
         bad = set(self.failed(now))
         return [h for h in self.hosts if h not in bad]
+
+
+def plan_mesh(n_chips: int, *, chips_per_pod: int = 256,
+              model: int = TP_ANCHOR) -> tuple[tuple[int, ...],
+                                               tuple[str, ...]]:
+    """Largest usable (pod, data, model) grid for the surviving chips.
+
+    Keeps model = TP_ANCHOR fixed (layout anchor), scales data width down to
+    what the survivors support; multi-pod only when whole pods survive.
+    """
+    if n_chips < model:
+        raise ValueError(f"need at least {model} chips, have {n_chips}")
+    pods = n_chips // chips_per_pod
+    if pods >= 2:
+        data = chips_per_pod // model
+        return (pods, data, model), ("pod", "data", "model")
+    data = n_chips // model
+    return (data, model), ("data", "model")
+
+
+def rebatch_for_mesh(global_batch: int, mesh_shape: Sequence[int],
+                     axes: Sequence[str]) -> int:
+    """Nearest feasible global batch for a replanned mesh (keeps per-replica
+    batch constant: elastic batch scaling)."""
+    dp = 1
+    for n, a in zip(mesh_shape, axes):
+        if a in ("pod", "data"):
+            dp *= n
+    per_replica = max(1, global_batch // dp)
+    return per_replica * dp
 
 
 class StragglerMonitor:

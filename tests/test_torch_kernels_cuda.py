@@ -12,7 +12,10 @@ and with each plan pinned.  Split gain: bins and the
 sums its bins in another order than torch.sum).  Forest traversal: labels
 exact.  Flash attention (bf16: the tensor-core kernel, f32: the scalar one):
 f32 atol 3e-5, bf16 atol 2e-2 (another summation order, P rounded to bf16
-before P . V; one bf16 rounding step of outputs near 1).
+before P . V; one bf16 rounding step of outputs near 1).  Its log-sum-exp
+atol 1e-4, the output unchanged bit for bit when it is written.  The
+backward kernel: f32 atol 2e-4, bf16 within 1% of the largest plain
+gradient, and repeatable bit for bit.
 """
 
 import dataclasses
@@ -518,3 +521,135 @@ def test_lm_prefill_cuda_equals_torch_on_the_card(dev):
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
     for a, b in zip(cache, cache_t):
         torch.testing.assert_close(a["k"], b["k"], atol=1e-4, rtol=0)
+
+
+# The backward kernel (csrc/flash_attention_bwd.cu) against the plain
+# backward on the same inputs: f32 atol 2e-4 (another summation order;
+# chip_smoke.py measured at most 3.9e-5 on an H100); bf16 within 1% of the
+# largest plain gradient (both round their f32 sums to bf16, a relative
+# step of 2^-8; chip_smoke.py measured at most 0.0625 absolute).
+BWD_CASES = [c[:7] for c in FLASH_CASES[:6]] + [
+    (1, s, 4, 2, d, w, cap) for d in (64, 128, 256) for s in (1, 63, 65, 1000)
+    for w, cap in ((0, 0.0), (100, 50.0))] + [
+    (2, 129, 6, 2, 32, 31, 0.0), (2, 200, 3, 1, 40, 1, 30.0)]
+
+
+def _bwd_inputs(dev, b, s, h, kv, d, dt, seed):
+    from repro_torch.kernels import flash_attention
+    q, k, v = _flash_inputs(dev, b, s, h, kv, d, dt, seed)
+    do = _flash_inputs(dev, b, s, h, kv, d, dt, seed + 1)[0]
+    return flash_attention.scale_query(q), k, v, do
+
+
+def _bwd_close(got, want, dtype):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.isfinite(g).all()
+        tol = (2e-4 if dtype == torch.float32
+               else 1e-2 * max(w.float().abs().max().item(), 1.0))
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_backward_kernel_matches_plain(dev, case, dtype):
+    from repro_torch.kernels import flash_attention, ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s, h, kv, d, window, cap = case
+    qs, k, v, do = _bwd_inputs(dev, b, s, h, kv, d, dtype, b * s + d)
+    kw = dict(window=window, softcap=cap)
+    o, lse = flash_attention.flash_attention_fwd(qs, k, v, with_lse=True,
+                                                 **kw)
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    before = dict(flash_attention.LAUNCHES_BWD_BY_DTYPE)
+    got = flash_attention.flash_attention_bwd(qs, k, v, o, do, lse, **kw)
+    want = ref.flash_attention_bwd_ref(qs, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES_BWD_BY_DTYPE == {
+        n: c + (n == name) for n, c in before.items()}
+    _bwd_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_backward_kernel_is_bitwise_repeatable(dev, dtype):
+    """No atomics: the same inputs give the same bits, launch after
+    launch."""
+    from repro_torch.kernels import flash_attention
+    qs, k, v, do = _bwd_inputs(dev, 2, 1000, 6, 2, 128, dtype, 5)
+    o, lse = flash_attention.flash_attention_fwd(qs, k, v, window=300,
+                                                 with_lse=True)
+    first = flash_attention.flash_attention_bwd(qs, k, v, o, do, lse,
+                                                window=300)
+    for _ in range(3):
+        again = flash_attention.flash_attention_bwd(qs, k, v, o, do, lse,
+                                                    window=300)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_CASES[:6] + FLASH_CASES[-4:])
+def test_flash_forward_lse_matches_plain_and_keeps_the_output(dev, case,
+                                                              dtype):
+    """Writing the LSE changes no output bit; the LSE (natural log, the
+    tensor-core kernel's log2 units converted) equals the plain one's."""
+    from repro_torch.kernels import flash_attention, ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s, h, kv, d, window, cap, _ = case
+    qs, k, v, _ = _bwd_inputs(dev, b, s, h, kv, d, dtype, b * s + d)
+    kw = dict(window=window, softcap=cap)
+    plain_out = flash_attention.flash_attention_fwd(qs, k, v, **kw)
+    out, lse = flash_attention.flash_attention_fwd(qs, k, v, with_lse=True,
+                                                   **kw)
+    _, want = ref.flash_attention_fwd_ref(qs, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain_out)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, s)
+    torch.testing.assert_close(lse, want, atol=1e-4, rtol=0)
+
+
+def test_attention_autograd_on_the_card_runs_the_kernel_pair(dev):
+    """blockwise_attention under autograd on CUDA tensors: one forward and
+    one backward launch, gradients equal to the plain pair's."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import layers
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = layers.AttnSpec(n_heads=6, n_kv_heads=2, head_dim=64, d_model=384,
+                           window=50, softcap=30.0)
+    q, k, v = _flash_inputs(dev, 2, 300, 6, 2, 64, torch.float32, 11)
+    do = _flash_inputs(dev, 2, 300, 6, 2, 64, torch.float32, 12)[0]
+    grads = {}
+    for impl in ("cuda", "torch"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        fwd, bwd = flash_attention.LAUNCHES, flash_attention.LAUNCHES_BWD
+        out = layers.blockwise_attention(*leaves, spec=spec,
+                                         impl=None if impl == "cuda" else impl)
+        grads[impl] = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+        n = int(impl == "cuda")
+        assert flash_attention.LAUNCHES == fwd + n
+        assert flash_attention.LAUNCHES_BWD == bwd + n
+    for a, b in zip(grads["cuda"], grads["torch"]):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=0)
+
+
+def test_train_steps_launch_the_kernels_and_repeat_bitwise(dev):
+    """Reduced gemma3_4b on the card (12 layers, two rematerialised
+    cycles): each step runs the forward kernel twice a layer and the
+    backward once, all bf16; a second run repeats every loss bit for bit."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.train import train
+    flash_attention.reset_launches()
+    out = train("gemma3_4b", reduced=True, steps=3, global_batch=2,
+                seq_len=128, log_every=100)
+    assert flash_attention.LAUNCHES_BY_DTYPE == {"bfloat16": 3 * 24,
+                                                 "float32": 0}
+    assert flash_attention.LAUNCHES_BWD_BY_DTYPE == {"bfloat16": 3 * 12,
+                                                     "float32": 0}
+    again = train("gemma3_4b", reduced=True, steps=3, global_batch=2,
+                  seq_len=128, log_every=100)
+    assert out["history"] == again["history"]
+    assert all(np.isfinite(out["history"]))

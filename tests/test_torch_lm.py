@@ -151,8 +151,8 @@ def test_params_from_jax_fills_layers_in_order():
     assert [layer.kind for layer in pt.layers] == ["local", "global", "local"]
     for i, layer in enumerate(pt.layers):
         want = jtr.layer_params(pj, cj, i)["attn"]["wq"]
-        np.testing.assert_array_equal(layer.attn["wq"].numpy(), want)
-    np.testing.assert_array_equal(pt.lm_head.numpy(), pj["lm_head"])
+        np.testing.assert_array_equal(layer.attn["wq"].detach().numpy(), want)
+    np.testing.assert_array_equal(pt.lm_head.detach().numpy(), pj["lm_head"])
 
 
 def test_init_draws_the_stated_shapes_and_dtypes():
