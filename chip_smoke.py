@@ -68,7 +68,9 @@ Phases (each one that fails ends the run with a non-zero exit):
      bf16 kernel's times (quoted from PERF.md, not re-run), and torch's
      scaled_dot_product_attention (the library yardstick, never called by
      the port) at S = 7,000 with window 0 and softcap 0.  Then the backward
-     kernel (csrc/flash_attention_bwd.cu) against the plain backward, in
+     kernels (csrc/flash_attention_bwd.cu; bf16: the tensor-core wgmma/TMA
+     kernels, f32: the scalar ones, which the profiler's kernel names must
+     show and the phase prints) against the plain backward, in
      f32 and bf16, at the JAX test shapes, at ragged S (1, 63, 65, 1000)
      with D = 128 and 256, and at the training layer shapes (S = 4,096):
      gemma2_9b's (B 1, H 16, KV 8, D 256, softcap 50, window 4,096 and 0),
@@ -143,6 +145,7 @@ from __future__ import annotations
 
 import json
 import shutil
+import re
 import subprocess
 import sys
 import tempfile
@@ -234,7 +237,8 @@ BWD_LAYERS = {
 # Backward kernel against plain: f32 atol 2e-4 (another summation order;
 # this script measured at most 3.9e-5 on an H100); bf16 within 1% of the
 # largest plain gradient (both round f32 sums to bf16, a relative step of
-# 2^-8; measured at most 0.0625 absolute).  The forward's LSE: atol 1e-4
+# 2^-8, and the tensor-core kernels round P and dS to bf16 as operands;
+# measured at most 0.25 absolute).  The forward's LSE: atol 1e-4
 # (measured 2.1e-5: the tensor-core kernel's log2-unit max times ln 2).
 BWD_F32_ATOL = 2e-4
 BWD_BF16_REL = 1e-2
@@ -268,10 +272,11 @@ TRAIN_BATCH = 2
 TRAIN_SEED = 0
 # One loss-and-gradient evaluation on the first batch, the kernel pair
 # against the plain pair: the bf16 forward kernel rounds P to bf16 before
-# P . V, and 34 layers carry the difference.  Measured on an H100: loss
-# |diff| 1.5e-4 (of 12.74), grad norm relative 5.2e-5, gradient relative
-# L2 0.0033 (embedding), 0.0048 (layer 0's wq), 0.0029 (layer 29's
-# w_down).  Limits about 3x that.
+# P . V, the backward P and dS before their products, and 34 layers carry
+# the difference.  Measured on an H100: loss |diff| 1.5e-4 (of 12.74),
+# grad norm relative 9.1e-5, gradient relative L2 0.0033 (embedding),
+# 0.0047 (layer 0's wq), 0.0029 (layer 29's w_down).  Limits 2.2-4.5x
+# that.
 TRAIN_LOSS_ATOL = 5e-4
 TRAIN_GRAD_REL_L2 = 0.015
 TRAIN_GNORM_REL = 2e-4
@@ -1241,6 +1246,40 @@ def _bwd_bound(case, dtype) -> tuple[float, str]:
                  BF16_TENSOR_OPS_PER_S)
 
 
+def _bwd_design(gen, dev) -> dict:
+    """The backward's device kernels by dtype, as the profiler names them
+    (three calls at S = 1,024 each, after a warm-up one): bf16 must run the
+    tensor-core kernels (flash_bwd_*_wgmma), f32 the scalar ones."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import flash_attention
+    design = {}
+    for dtype in ("bfloat16", "float32"):
+        qs, k, v, o, do, lse = _bwd_inputs((1, 1024, 8, 4, 256, 0, 0.0),
+                                           dtype, gen, dev)
+        flash_attention.flash_attention_bwd(qs, k, v, o, do, lse)
+        torch.cuda.synchronize()
+        names = set()
+        for _ in range(3):          # the profiler may drop a kernel's events
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    flash_attention.flash_attention_bwd(qs, k, v, o, do, lse)
+                torch.cuda.synchronize()
+            names |= {re.search(r"flash_bwd_\w+", e.key).group(0)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and "flash_bwd" in e.key}
+            if len(names) == 3:
+                break
+        names = sorted(names)
+        tc = [n for n in names if "wgmma" in n]
+        check(len(tc) == (2 if dtype == "bfloat16" else 0)
+              and len(names) == 3, f"flash_bwd: {dtype} ran {names}")
+        design[dtype] = names
+    return design
+
+
 def check_flash_bwd(gen, dev) -> dict:
     """Phase 7, the backward.  Returns the kernel's record (launches filled
     in by phase 11)."""
@@ -1265,7 +1304,7 @@ def check_flash_bwd(gen, dev) -> dict:
         kw = dict(window=window, softcap=cap)
         qs, k, v, o, do, lse = _bwd_inputs(case, "bfloat16", gen, dev)
         ms = cuda_ms(lambda: flash_attention.flash_attention_bwd(
-            qs, k, v, o, do, lse, **kw), reps=3, warmup=1)
+            qs, k, v, o, do, lse, **kw), reps=10)
         plain_ms = cuda_ms(lambda: ref.flash_attention_bwd_ref(
             qs, k, v, o, do, lse, **kw), reps=2, warmup=1)
         library_ms = None
@@ -1286,6 +1325,7 @@ def check_flash_bwd(gen, dev) -> dict:
                                       _bwd_bound(case, "bfloat16"))))
         del qs, k, v, o, do, lse
         torch.cuda.empty_cache()
+    design = _bwd_design(gen, dev)
     for name, t in times.items():
         b, s, h, kv, d, window, cap = BWD_LAYERS[name]
         lib = ("" if t["library_ms"] is None else
@@ -1298,8 +1338,10 @@ def check_flash_bwd(gen, dev) -> dict:
           f"{max_err['float32']:.3g}, bf16 {max_err['bfloat16']:.3g}; forward "
           f"LSE max |diff| {max_lse:.3g}, output unchanged, over "
           f"{len(cases)} shapes x 2 dtypes")
+    print(f"flash_attention_bwd: design run: {design}")
     glob = times["gemma3_4b_global"]
     return dict(
+        design=design,
         name="flash_attention_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         replaces="src/repro/models/layers.py:268",

@@ -2,11 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles, on its own,
 into ``build/kernels/lib<name>-<hash>.so`` at the root of the checkout; the
-hash covers the source and the flags, so an edited source builds anew and an
-unchanged one is reused.  Nothing includes PyTorch's headers, so a build
-takes seconds.  The kernels are built at first use, never at import,
-and once a process: a lock makes threads that reach a kernel together wait
-for one build and one load.
+hash covers the source, the headers of ``csrc/`` (``*.cuh``) and the flags,
+so an edited source or header builds anew and an unchanged one is reused.
+Nothing includes PyTorch's headers, so a build takes seconds.  The kernels
+are built at first use, never at import, and once a process: a lock makes
+threads that reach a kernel together wait for one build and one load.
 """
 
 from __future__ import annotations
@@ -56,7 +56,8 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
         src + " ".join(nvcc_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"

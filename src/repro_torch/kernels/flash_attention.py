@@ -14,14 +14,16 @@ to the scalar one.  CUDA tensors only; the plain version is
 Training differentiates attention as the JAX custom VJP ``_flash`` does,
 on q already scaled: :func:`flash_attention_fwd` also returns each row's
 log-sum-exp, and :func:`flash_attention_bwd` (the counterpart of
-``repro.models.layers._flash_vjp_bwd``) returns dq, dk and dv from it.
-Their plain versions are ``ref.flash_attention_fwd_ref`` and
+``repro.models.layers._flash_vjp_bwd``) returns dq, dk and dv from it;
+bfloat16 goes to the tensor-core backward (wgmma + TMA), float32 to the
+scalar one.  Their plain versions are ``ref.flash_attention_fwd_ref`` and
 ``ref.flash_attention_bwd_ref``.
 
-The tensor-core kernel's geometry is computed here, in Python the CPU tests
+The tensor-core kernels' geometry is computed here, in Python the CPU tests
 reach: :func:`tile_plan` (the live KV tiles of each query tile, heaviest
-first) and :func:`tma_geometry` (the tensor maps' dims, byte strides and
-box, the grid and the shared memory), both passed to the launch.
+first), :func:`bwd_tile_plans` (the backward's two plans) and
+:func:`tma_geometry` (the tensor maps' dims, byte strides and box, the grid
+and the shared memory), all passed to the launches.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ from repro_torch.kernels import _build
 
 # Launches of the forward kernels in this process (the main path's proof of
 # use): all of them, and by dtype (bfloat16: tensor-core kernel, float32:
-# scalar); those of the backward (one a flash_attention_bwd call), by dtype.
+# scalar); those of the backward (one a flash_attention_bwd call), by dtype
+# likewise.
 LAUNCHES = 0
 LAUNCHES_BY_DTYPE = {"bfloat16": 0, "float32": 0}
 LAUNCHES_BWD = 0
@@ -53,13 +56,17 @@ _COUNT_LOCK = threading.Lock()
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
 
-# The tensor-core kernel's tiles: 128 query rows a block (two warpgroups of
-# 64), 64 keys a KV tile, every tile cut into 64 x 64 bf16 boxes (8 KB).
+# The tensor-core forward's tiles: 128 query rows a block (two warpgroups
+# of 64), 64 keys a KV tile, every tile cut into 64 x 64 bf16 boxes (8 KB).
+# The tensor-core backward's tiles: 64 keys and 64 query rows; its dK/dV
+# kernel keeps a 16 KB f32 exchange besides its tiles.
 BQ = 128
 BK = 64
+BWD_TILE = 64
 BOX = (64, 1, 64, 1)
 PANEL_BYTES = 64 * 64 * 2
 STAGES = 2
+BWD_EXCHANGE_BYTES = 32 * 128 * 4
 MAX_SMEM_BYTES = 232_448           # what an H100 block can use
 # TMA's limits (cuTensorMapEncodeTiled): dims up to 2^32, byte strides
 # multiples of 16 below 2^40; grid.y of the launch up to 65,535 tiles.
@@ -77,6 +84,8 @@ _BF16_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                   _F, _U64, _U64, _U64, _U64, _U32, _I, _I, _P]
 _BWD_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                  _I, _I, _I, _F, _P]
+_BWD_BF16_ARGTYPES = [_P] * 10 + [_P, _I, _P, _I] + [_I] * 7 + [
+    _F, _U64, _U64, _U64, _U64, _U32, _I, _I, _I, _P]
 
 
 def _lib() -> ctypes.CDLL:
@@ -94,23 +103,56 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = _build.library("flash_attention_bwd")
     lib.flash_attention_bwd_launch.argtypes = _BWD_ARGTYPES
     lib.flash_attention_bwd_launch.restype = ctypes.c_int
+    lib.flash_attention_bwd_bf16_launch.argtypes = _BWD_BF16_ARGTYPES
+    lib.flash_attention_bwd_bf16_launch.restype = ctypes.c_int
     lib.flash_attention_bwd_error.argtypes = [ctypes.c_int]
     lib.flash_attention_bwd_error.restype = ctypes.c_char_p
     return lib
 
 
-def tile_plan(sq: int, sk: int, window: int) -> list[tuple[int, int, int]]:
-    """``(q0, lo, hi)`` for every 128-row query tile: the live 64-key tiles
-    ``[lo, hi)`` of ``repro.models.layers._causal_kv_range`` (q_offset 0;
-    the last row capped at ``sq - 1``), heaviest tiles first (later tiles
-    first among equals)."""
+def tile_plan(sq: int, sk: int, window: int, bq: int = BQ
+              ) -> list[tuple[int, int, int]]:
+    """``(q0, lo, hi)`` for every ``bq``-row query tile: the live 64-key
+    tiles ``[lo, hi)`` of ``repro.models.layers._causal_kv_range`` (q_offset
+    0; the last row capped at ``sq - 1``), heaviest tiles first (later
+    tiles first among equals)."""
     nk = -(-sk // BK)
     plan = []
-    for q0 in range(0, sq, BQ):
-        hi = min((min(q0 + BQ, sq) - 1) // BK + 1, nk)
+    for q0 in range(0, sq, bq):
+        hi = min((min(q0 + bq, sq) - 1) // BK + 1, nk)
         lo = max((q0 - window + 1) // BK, 0) if window > 0 else 0
         plan.append((q0, lo, hi))
     return sorted(plan, key=lambda t: (t[1] - t[2], -t[0]))
+
+
+def bwd_tile_plans(sq: int, sk: int, window: int
+                   ) -> tuple[list[tuple[int, int, int]],
+                              list[tuple[int, int, int]]]:
+    """The tensor-core backward's plans, heaviest tiles first: for its
+    dK/dV kernel ``(k0, qlo, qhi)`` of every 64-key tile, the live 64-row
+    query tiles ``[qlo, qhi)`` of ``repro.models.layers._q_range`` (q_offset
+    0; empty for keys past the last row); for its dQ kernel ``(q0, lo, hi)``
+    of every 64-row query tile, as :func:`tile_plan`."""
+    t = BWD_TILE
+    nq = -(-sq // t)
+    kv_plan = []
+    for k0 in range(0, sk, t):
+        hi = min((k0 + t + window - 2) // t + 1, nq) if window > 0 else nq
+        kv_plan.append((k0, min(k0 // t, hi), hi))
+    kv_plan.sort(key=lambda p: (p[1] - p[2], p[0]))
+    return kv_plan, tile_plan(sq, sk, window, bq=t)
+
+
+def bwd_smem_bytes(d_pad: int) -> tuple[int, int]:
+    """Dynamic shared memory of the tensor-core backward's (dK/dV, dQ)
+    kernels at padded head dim ``d_pad``: 1 KB of alignment slack, two
+    resident and 2 x STAGES streamed tiles of ``d_pad / 64`` boxes, the dK/dV
+    exchange, 64 bytes of mbarriers."""
+    tiles = (2 + 2 * STAGES) * (d_pad // 64) * PANEL_BYTES
+    dkdv = 1024 + tiles + BWD_EXCHANGE_BYTES + 64
+    dq = 1024 + tiles + 64
+    assert max(dkdv, dq) <= MAX_SMEM_BYTES, (dkdv, dq)
+    return dkdv, dq
 
 
 @dataclass(frozen=True)
@@ -167,6 +209,19 @@ def _plan_tensor(sq: int, sk: int, window: int, device: torch.device
     flat = [x for t in tile_plan(sq, sk, window) for x in t]
     return torch.tensor(flat, dtype=torch.int32).pin_memory().to(
         device, non_blocking=True)
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_plan_tensor(sq: int, sk: int, window: int, device: torch.device
+                     ) -> tuple[torch.Tensor, int, int]:
+    """Both backward plans in one int32 tensor on the card (dK/dV's, then
+    dQ's) and their tile counts, made once per shape as
+    :func:`_plan_tensor`."""
+    kv_plan, q_plan = bwd_tile_plans(sq, sk, window)
+    flat = [x for t in kv_plan + q_plan for x in t]
+    tensor = torch.tensor(flat, dtype=torch.int32).pin_memory().to(
+        device, non_blocking=True)
+    return tensor, len(kv_plan), len(q_plan)
 
 
 def scale_query(q: torch.Tensor) -> torch.Tensor:
@@ -329,8 +384,9 @@ def flash_attention_bwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of :func:`flash_attention_fwd` at ``qs`` (q scaled by
     ``1/sqrt(D)``; dq is with respect to it), given its output ``o``, the
-    output's gradient ``do`` and the forward's ``lse``.  f32 arithmetic
-    inside, results in the inputs' dtype; no atomics, so the same inputs
+    output's gradient ``do`` and the forward's ``lse``.  f32 sums inside
+    (bfloat16: on the tensor cores, P and dS rounded to bfloat16 as their
+    operands), results in the inputs' dtype; no atomics, so the same inputs
     give the same bits."""
     check_bwd_shapes(qs, k, v, o, do, lse, window=window, softcap=softcap)
     _check_cuda(qs, k, v, o, do, lse)
@@ -339,6 +395,12 @@ def flash_attention_bwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b * h > _MAX_GRID_Y:
         raise ValueError(f"B * H = {b * h} blocks exceed the grid's "
                          f"{_MAX_GRID_Y}")
+    bf16 = qs.dtype == torch.bfloat16
+    if bf16:
+        geo = tma_geometry(b, sq, sk, h, kv, d)
+        if -(-sk // BWD_TILE) > _MAX_GRID_Y:
+            raise ValueError(f"Sk = {sk} needs more key tiles than the "
+                             f"grid's {_MAX_GRID_Y}")
     qs, k, v, o, do, lse = (t.contiguous() for t in (qs, k, v, o, do, lse))
     _check_aligned(qs, k, v, o, do, lse)
     dev = qs.device
@@ -346,14 +408,23 @@ def flash_attention_bwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b == 0 or sq == 0:
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
-    bf16 = qs.dtype == torch.bfloat16
+    ptrs = [t.data_ptr() for t in (qs, k, v, o, do, lse, delta, dq, dk, dv)]
     with _LAUNCH_LOCK, torch.cuda.device(dev):
         lib = _bwd_lib()
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.flash_attention_bwd_launch(
-            int(bf16), *(t.data_ptr() for t in (qs, k, v, o, do, lse, delta,
-                                               dq, dk, dv)),
-            b, sq, sk, h, kv, d, int(window), float(softcap), stream)
+        if bf16:
+            plans, n_kv, n_q = _bwd_plan_tensor(sq, sk, int(window), dev)
+            err = lib.flash_attention_bwd_bf16_launch(
+                *ptrs, plans.data_ptr(), n_kv,
+                plans.data_ptr() + 3 * 4 * n_kv, n_q, b, sq, sk, h, kv, d,
+                int(window), float(softcap), _u64(geo.q_dims),
+                _u64(geo.q_strides), _u64(geo.kv_dims), _u64(geo.kv_strides),
+                (ctypes.c_uint32 * 4)(*geo.box), geo.d_pad,
+                *bwd_smem_bytes(geo.d_pad), stream)
+        else:
+            err = lib.flash_attention_bwd_launch(
+                0, *ptrs, b, sq, sk, h, kv, d, int(window), float(softcap),
+                stream)
     if err:
         raise RuntimeError("flash_attention_bwd launch failed: "
                            + lib.flash_attention_bwd_error(err).decode())

@@ -9,9 +9,12 @@ inputs, to ``jax.vjp`` of ``repro.models.layers.blockwise_attention`` with
 dense attention.  The plain forward's LSE is held to ``m + log(l)`` of the
 JAX ``_flash_fwd``.
 
-The CUDA backward kernel (``csrc/flash_attention_bwd.cu``) cannot run here;
-its tile walk is emulated in torch (32 x 32 tiles, the kernel's live-tile
-ranges) and held to the plain backward.
+The CUDA backward kernels (``csrc/flash_attention_bwd.cu``) cannot run
+here; their tile walks are emulated in torch and held to the plain backward:
+the f32 scalar kernels' (32 x 32 tiles, their in-kernel live-tile ranges)
+and the bf16 tensor-core kernels' (64 x 64 tiles, the wrapper's
+``bwd_tile_plans``), the latter also with P and dS rounded to bf16 as its
+wgmma operands are.
 
 Tolerances (measured on these cases): f32 atol 2e-5 on gradients up to
 about 7 (measured max 4.8e-6: sums in another order); bf16 atol the larger
@@ -29,6 +32,7 @@ import pytest
 import torch
 
 from repro.models import layers as jlayers
+from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import scale_query
 from repro_torch.models import layers as tlayers
@@ -44,6 +48,9 @@ CASES = [(h, kv, w, cap, "float32") for h, kv in HEADS for w in WINDOWS
     (4, 2, 0, 50.0, "bfloat16")]
 F32_ATOL = 2e-5
 BF16_ATOL, BF16_REL = 0.02, 0.01
+# chip_smoke.py phase 7's gate on the bf16 backward kernel: 1% of the
+# largest plain gradient
+BWD_BF16_REL = 1e-2
 
 
 def _ids(case):
@@ -185,18 +192,40 @@ def test_flash_attention_ref_returns_the_lse():
 
 
 # --------------------------------------------------------------------------
-# the CUDA backward's tile walk, emulated (csrc/flash_attention_bwd.cu)
+# the CUDA backward's tile walks, emulated (csrc/flash_attention_bwd.cu)
 # --------------------------------------------------------------------------
 
-BQ = BKV = 32
+def _scalar_plans(sq, sk, window):
+    """The f32 scalar kernels' walk: 32 x 32 tiles, each range computed in
+    the kernel (flash_bwd_dkdv: _q_range; flash_bwd_dq: _causal_kv_range)."""
+    t = 32
+    nq, nk = -(-sq // t), -(-sk // t)
+    kv_plan = [(k0, k0 // t, min((k0 + t + window - 2) // t + 1, nq)
+                if window > 0 else nq) for k0 in range(0, sk, t)]
+    q_plan = []
+    for q0 in range(0, sq, t):
+        first = q0 - window + 1
+        klo = first // t if window > 0 and first > 0 else 0
+        q_plan.append((q0, klo, min((min(q0 + t, sq) - 1) // t + 1, nk)))
+    return t, kv_plan, q_plan
 
 
-def _pair_grads(qs, k, v, do, lse, delta, q0, k0, window, cap):
-    """p and dS of one (32-row, 32-key) tile pair, as the kernel's
-    ``grad_logit`` and ``live_pair``; masked pairs are 0."""
+def _wgmma_plans(sq, sk, window):
+    """The bf16 tensor-core kernels' walk: 64 x 64 tiles, the wrapper's own
+    plans (kernels/flash_attention.py: bwd_tile_plans)."""
+    kv_plan, q_plan = tflash.bwd_tile_plans(sq, sk, window)
+    return tflash.BWD_TILE, kv_plan, q_plan
+
+
+DESIGNS = {"scalar": _scalar_plans, "wgmma": _wgmma_plans}
+
+
+def _pair_grads(qs, k, v, do, lse, delta, q0, k0, tile, window, cap):
+    """p and dS of one (tile-row, tile-key) tile pair, as the kernels'
+    masks; masked pairs are 0."""
     sq, sk = qs.shape[0], k.shape[0]
-    qb, dob = qs[q0:q0 + BQ], do[q0:q0 + BQ]
-    kb, vb = k[k0:k0 + BKV], v[k0:k0 + BKV]
+    qb, dob = qs[q0:q0 + tile], do[q0:q0 + tile]
+    kb, vb = k[k0:k0 + tile], v[k0:k0 + tile]
     raw, dp = qb @ kb.T, dob @ vb.T
     t = torch.tanh(raw / cap) if cap > 0 else None
     x = t * cap if cap > 0 else raw
@@ -205,75 +234,160 @@ def _pair_grads(qs, k, v, do, lse, delta, q0, k0, window, cap):
     live = (qp >= kp) & (kp < sk) & (qp < sq)
     if window > 0:
         live &= qp - kp < window
-    p = torch.where(live, torch.exp(x - lse[q0:q0 + BQ, None]), 0.0)
-    ds = p * (dp - delta[q0:q0 + BQ, None])
+    p = torch.where(live, torch.exp(x - lse[q0:q0 + tile, None]), 0.0)
+    ds = p * (dp - delta[q0:q0 + tile, None])
     if cap > 0:
         ds = ds * (1 - t * t)
     return p, torch.where(live, ds, 0.0)
 
 
-def _emulate_kernel_bwd(qs, k, v, o, do, lse, window, cap):
-    """One head group of the kernel's passes: dK, dV over the live query
-    tiles of each key tile, then dQ over the live key tiles of each query
-    tile, with the kernel's range formulas (flash_bwd_dkdv, flash_bwd_dq).
+def _emulate_kernel_bwd(qs, k, v, o, do, lse, window, cap, design="scalar",
+                        bf16_operands=False):
+    """One head group of a design's two passes: dK, dV over the plan's live
+    query tiles of each key tile (for each head of the group), then dQ over
+    the plan's live key tiles of each query tile.  With ``bf16_operands``
+    P and dS are rounded to bf16 before their products, as the tensor-core
+    kernels round their wgmma A operands; sums stay f32.
     qs, o, do: (Sq, G, D); k, v: (Sk, D); lse: (G, Sq)."""
     sq, g, d = qs.shape
     sk = k.shape[0]
+    tile, kv_plan, q_plan = DESIGNS[design](sq, sk, window)
+    rnd = ((lambda x: x.to(torch.bfloat16).float()) if bf16_operands
+           else (lambda x: x))
     delta = (do * o).sum(-1).T                               # (G, Sq)
     dq, dk, dv = torch.zeros_like(qs), torch.zeros_like(k), torch.zeros_like(v)
-    nq, nk = -(-sq // BQ), -(-sk // BKV)
-    for kt in range(nk):
-        k0 = kt * BKV
-        qlo = k0 // BQ
-        qhi = min((k0 + BKV + window - 2) // BQ + 1, nq) if window > 0 else nq
+    for k0, qlo, qhi in kv_plan:
         for gi in range(g):
             for qt in range(qlo, qhi):
                 p, ds = _pair_grads(qs[:, gi], k, v, do[:, gi], lse[gi],
-                                    delta[gi], qt * BQ, k0, window, cap)
-                rows = slice(qt * BQ, qt * BQ + p.shape[0])
-                dv[k0:k0 + BKV] += p.T @ do[rows, gi]
-                dk[k0:k0 + BKV] += ds.T @ qs[rows, gi]
-    for gi in range(g):
-        for qt in range(nq):
-            q0 = qt * BQ
-            nvq = min(BQ, sq - q0)
-            khi = min((q0 + nvq - 1) // BKV + 1, nk)
-            first = q0 - window + 1
-            klo = first // BKV if window > 0 and first > 0 else 0
+                                    delta[gi], qt * tile, k0, tile, window,
+                                    cap)
+                rows = slice(qt * tile, qt * tile + p.shape[0])
+                dv[k0:k0 + tile] += rnd(p).T @ do[rows, gi]
+                dk[k0:k0 + tile] += rnd(ds).T @ qs[rows, gi]
+    for q0, klo, khi in q_plan:
+        for gi in range(g):
             for kt in range(klo, khi):
+                k0 = kt * tile
                 _, ds = _pair_grads(qs[:, gi], k, v, do[:, gi], lse[gi],
-                                    delta[gi], q0, kt * BKV, window, cap)
-                dq[q0:q0 + nvq, gi] += ds @ k[kt * BKV:kt * BKV + ds.shape[1]]
+                                    delta[gi], q0, k0, tile, window, cap)
+                dq[q0:q0 + ds.shape[0], gi] += rnd(ds) @ k[k0:k0 + ds.shape[1]]
     return dq, dk, dv
+
+
+def _walk_case(s, d, window, cap, seed, *, g=3, bf16_inputs=False):
+    """Inputs of one head group, the plain backward's gradients on them,
+    and the emulation's arguments."""
+    rng = np.random.default_rng(seed)
+    qs, o, do = (torch.from_numpy(rng.normal(0, 1, (1, s, g, d))
+                                  .astype(np.float32)) for _ in range(3))
+    k, v = (torch.from_numpy(rng.normal(0, 1, (1, s, 1, d)).astype(np.float32))
+            for _ in range(2))
+    qs = qs / math.sqrt(d)
+    if bf16_inputs:
+        qs, k, v, do = (t.to(torch.bfloat16).float() for t in (qs, k, v, do))
+    o, lse = ref.flash_attention_fwd_ref(qs, k, v, window=window, softcap=cap)
+    want = ref.flash_attention_bwd_ref(qs, k, v, o, do, lse, window=window,
+                                       softcap=cap)
+    want = [want[0][0], want[1][0, :, 0], want[2][0, :, 0]]
+    args = (qs[0], k[0, :, 0], v[0, :, 0], o[0], do[0], lse[0], window, cap)
+    return args, want
 
 
 @pytest.mark.parametrize("s,window,cap", [
     (100, 0, 0.0), (100, 24, 50.0), (97, 40, 0.0), (64, 1, 0.0),
     (33, 100, 30.0), (130, 31, 0.0)])
 def test_kernel_tile_walk_matches_plain_backward(s, window, cap):
-    """Every live pair is visited exactly once by each pass: the emulated
-    tile walk equals the plain backward (which masks pair by pair)."""
-    rng = np.random.default_rng(s + window)
-    g = 3
-    qs, o, do = (torch.from_numpy(rng.normal(0, 1, (1, s, g, D))
-                                  .astype(np.float32)) for _ in range(3))
-    k, v = (torch.from_numpy(rng.normal(0, 1, (1, s, 1, D)).astype(np.float32))
-            for _ in range(2))
-    qs = qs / math.sqrt(D)
-    o, lse = ref.flash_attention_fwd_ref(qs, k, v, window=window, softcap=cap)
-    want = ref.flash_attention_bwd_ref(qs, k, v, o, do, lse, window=window,
-                                       softcap=cap)
-    got = _emulate_kernel_bwd(qs[0], k[0, :, 0], v[0, :, 0], o[0], do[0],
-                              lse[0], window, cap)
-    np.testing.assert_allclose(got[0].numpy(), want[0][0].numpy(),
-                               atol=F32_ATOL, rtol=0)
-    for i in (1, 2):
-        np.testing.assert_allclose(got[i].numpy(), want[i][0, :, 0].numpy(),
-                                   atol=F32_ATOL, rtol=0)
+    """Every live pair is visited exactly once by each pass of the scalar
+    kernels' walk: the emulated walk equals the plain backward (which masks
+    pair by pair)."""
+    args, want = _walk_case(s, D, window, cap, s + window)
+    got = _emulate_kernel_bwd(*args, design="scalar")
+    for g_, w in zip(got, want):
+        np.testing.assert_allclose(g_.numpy(), w.numpy(), atol=F32_ATOL,
+                                   rtol=0)
+
+
+# Ragged S on both sides of the 64-row tiles, windows narrower than a tile,
+# across a tile edge and wider than S, softcaps; D of one partly filled
+# 64-column box (32, 40), two (128) and four (256).
+WGMMA_WALKS = [(s, d, w, cap) for d in (32, 40, 128, 256)
+               for s, w, cap in ((1, 0, 0.0), (63, 0, 30.0), (65, 24, 0.0),
+                                 (130, 70, 50.0), (200, 0, 0.0))]
+
+
+def _walk_id(case):
+    s, d, w, cap = case
+    return f"S{s}-D{d}-w{w}-cap{int(cap)}"
+
+
+@pytest.mark.parametrize("case", WGMMA_WALKS, ids=_walk_id)
+def test_wgmma_tile_walk_matches_plain_backward(case):
+    """The tensor-core kernels' walk, from the wrapper's plans: in f32 it
+    equals the plain backward, so every live pair is visited exactly once by
+    each pass and no dead tile adds anything.  Tolerance F32_ATOL times the
+    largest gradient (at least 1): the sums run in another order, and at
+    D = 256 gradients reach about 4 (measured at most 1.7e-5 of the largest)."""
+    s, d, window, cap = case
+    args, want = _walk_case(s, d, window, cap, s + d + window)
+    got = _emulate_kernel_bwd(*args, design="wgmma")
+    for g_, w in zip(got, want):
+        tol = F32_ATOL * max(w.abs().max().item(), 1.0)
+        np.testing.assert_allclose(g_.numpy(), w.numpy(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("design", list(DESIGNS))
+@pytest.mark.parametrize("case", WGMMA_WALKS, ids=_walk_id)
+def test_bf16_operand_rounding_holds_the_bf16_gate(case, design):
+    """P and dS rounded to bf16 as the wgmma A operands, sums in f32, on
+    bf16 inputs: within phase 7's bf16 gate, 1% of the largest plain f32
+    gradient (chip_smoke.py BWD_BF16_REL), of the plain backward on the same
+    inputs in f32.  Measured at most 0.32% of it over these cases, so the
+    rounding fits the gate without splitting dS into two bf16 parts."""
+    s, d, window, cap = case
+    args, want = _walk_case(s, d, window, cap, 7 * s + d, bf16_inputs=True)
+    got = _emulate_kernel_bwd(*args, design=design, bf16_operands=True)
+    for g_, w in zip(got, want):
+        tol = BWD_BF16_REL * max(w.abs().max().item(), 1.0)
+        np.testing.assert_allclose(g_.numpy(), w.numpy(), atol=tol, rtol=0)
+
+
+def test_bwd_tile_plans_are_the_reference_ranges():
+    """The dK/dV plan's query-tile range of each key tile is the JAX
+    ``_q_range`` at 64 x 64 chunks (empty past the last row), the dQ plan is
+    ``tile_plan`` at 64-row tiles (``_causal_kv_range``); both heaviest
+    first, each tile once."""
+    t = tflash.BWD_TILE
+    for sq, sk, window in ((1, 1, 0), (200, 200, 0), (300, 300, 70),
+                           (4096, 4096, 1024), (100, 230, 0), (129, 129, 1)):
+        kv_plan, q_plan = tflash.bwd_tile_plans(sq, sk, window)
+        nq = -(-sq // t)
+        assert sorted(p[0] for p in kv_plan) == list(range(0, sk, t))
+        for k0, lo, hi in kv_plan:
+            want_lo = k0 // t
+            want_hi = (min((k0 + t + window - 2) // t + 1, nq) if window > 0
+                       else nq)
+            assert (lo, hi) == ((want_lo, want_hi) if want_lo < nq
+                                else (nq, nq))
+        work = [hi - lo for _, lo, hi in kv_plan]
+        assert work == sorted(work, reverse=True)
+        assert q_plan == tflash.tile_plan(sq, sk, window, bq=t)
+
+
+@pytest.mark.parametrize("d_pad", [64, 128, 192, 256])
+def test_bwd_shared_memory_fits_an_h100_block(d_pad):
+    """The tensor-core backward's shared memory: K, V (dK/dV) or Q, dO (dQ)
+    resident, a 2-stage ring of the two others, 64 x d_pad bf16 tiles, 1 KB
+    of alignment slack and the barriers; dK/dV also the 16 KB exchange."""
+    dkdv, dq = tflash.bwd_smem_bytes(d_pad)
+    tiles = 6 * 64 * d_pad * 2
+    assert dq == tiles + 1024 + 64
+    assert dkdv == dq + 32 * 128 * 4 <= tflash.MAX_SMEM_BYTES
+    if d_pad == 256:
+        assert (dkdv, dq) == (214_080, 197_696)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors_and_counts_nothing():
-    from repro_torch.kernels import flash_attention as tflash
     qs = torch.zeros((1, 8, 2, 16))
     lse = torch.zeros((1, 2, 8))
     before = (tflash.LAUNCHES_BWD, dict(tflash.LAUNCHES_BWD_BY_DTYPE))

@@ -14,8 +14,9 @@ exact.  Flash attention (bf16: the tensor-core kernel, f32: the scalar one):
 f32 atol 3e-5, bf16 atol 2e-2 (another summation order, P rounded to bf16
 before P . V; one bf16 rounding step of outputs near 1).  Its log-sum-exp
 atol 1e-4, the output unchanged bit for bit when it is written.  The
-backward kernel: f32 atol 2e-4, bf16 within 1% of the largest plain
-gradient, and repeatable bit for bit.
+backward (bf16: the tensor-core kernels, f32: the scalar ones): f32 atol
+2e-4, bf16 within 1% of the largest plain gradient, and repeatable bit for
+bit.
 """
 
 import dataclasses
@@ -523,11 +524,12 @@ def test_lm_prefill_cuda_equals_torch_on_the_card(dev):
         torch.testing.assert_close(a["k"], b["k"], atol=1e-4, rtol=0)
 
 
-# The backward kernel (csrc/flash_attention_bwd.cu) against the plain
+# The backward kernels (csrc/flash_attention_bwd.cu) against the plain
 # backward on the same inputs: f32 atol 2e-4 (another summation order;
 # chip_smoke.py measured at most 3.9e-5 on an H100); bf16 within 1% of the
 # largest plain gradient (both round their f32 sums to bf16, a relative
-# step of 2^-8; chip_smoke.py measured at most 0.0625 absolute).
+# step of 2^-8, and the tensor-core kernels round P and dS to bf16 as
+# operands; chip_smoke.py measured at most 0.25 absolute).
 BWD_CASES = [c[:7] for c in FLASH_CASES[:6]] + [
     (1, s, 4, 2, d, w, cap) for d in (64, 128, 256) for s in (1, 63, 65, 1000)
     for w, cap in ((0, 0.0), (100, 50.0))] + [
@@ -571,6 +573,75 @@ def test_flash_backward_kernel_matches_plain(dev, case, dtype):
     _bwd_close(got, want, dtype)
 
 
+def _bwd_against_plain(dev, b, s, h, kv, d, window, cap, seed):
+    """The bf16 backward (tensor-core kernels) against the plain backward on
+    the same inputs: one bf16 launch, no f32 one, within the bf16 gate."""
+    from repro_torch.kernels import flash_attention, ref
+    qs, k, v, do = _bwd_inputs(dev, b, s, h, kv, d, torch.bfloat16, seed)
+    kw = dict(window=window, softcap=cap)
+    o, lse = flash_attention.flash_attention_fwd(qs, k, v, with_lse=True,
+                                                 **kw)
+    before = dict(flash_attention.LAUNCHES_BWD_BY_DTYPE)
+    got = flash_attention.flash_attention_bwd(qs, k, v, o, do, lse, **kw)
+    want = ref.flash_attention_bwd_ref(qs, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES_BWD_BY_DTYPE == {
+        "bfloat16": before["bfloat16"] + 1, "float32": before["float32"]}
+    _bwd_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", range(8, 257, 8))
+def test_flash_backward_tensor_core_every_head_dim(dev, d):
+    """Every D the wrapper takes, 40, 96 and 200 (not multiples of 64)
+    among them: S = 200 (not a multiple of the 64-row tile), B = 2 (the
+    tensor map's batch edge), G = 1, 2, 3 in turn, with and without window
+    and softcap."""
+    g = (d // 8) % 3 + 1
+    window, cap = ((0, 0.0), (50, 0.0), (0, 30.0), (70, 50.0))[(d // 8) % 4]
+    _bwd_against_plain(dev, 2, 200, 2 * g, 2, d, window, cap, d)
+
+
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (1, 0.0), (100, 0.0),
+                                        (0, 50.0), (100, 50.0)])
+@pytest.mark.parametrize("g", [1, 2, 3])
+@pytest.mark.parametrize("s,d", [(1, 256), (63, 64), (65, 40), (130, 96),
+                                 (1000, 256), (777, 200)])
+def test_flash_backward_tensor_core_groups_windows_softcaps(dev, s, d, g,
+                                                            window, cap):
+    """GQA groups of 1, 2 and 3 query heads, windows narrower than a tile
+    and wider, the softcap, ragged S on both sides of the 64-row tile."""
+    _bwd_against_plain(dev, 1, s, 2 * g, 2, d, window, cap, s + d + g)
+
+
+def test_flash_backward_routes_each_dtype_to_its_kernels(dev):
+    """bf16 inputs run the tensor-core kernels (flash_bwd_dkdv_wgmma,
+    flash_bwd_dq_wgmma), f32 inputs the scalar ones (flash_bwd_dkdv,
+    flash_bwd_dq), each after flash_bwd_delta: the kernels' names as the
+    profiler records them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import flash_attention
+    for dt, wgmma in ((torch.bfloat16, True), (torch.float32, False)):
+        qs, k, v, do = _bwd_inputs(dev, 1, 300, 4, 2, 128, dt, 9)
+        o, lse = flash_attention.flash_attention_fwd(qs, k, v, with_lse=True)
+        flash_attention.flash_attention_bwd(qs, k, v, o, do, lse)
+        torch.cuda.synchronize()
+        names = set()
+        for _ in range(3):          # the profiler may drop a kernel's events
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                flash_attention.flash_attention_bwd(qs, k, v, o, do, lse)
+                torch.cuda.synchronize()
+            names |= {e.key for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and "flash_bwd" in e.key}
+            if len(names) == 3:
+                break
+        assert any("flash_bwd_delta" in n for n in names), names
+        for part in ("flash_bwd_dkdv", "flash_bwd_dq"):
+            hits = [n for n in names if part in n and "delta" not in n]
+            assert hits and all(("wgmma" in n) == wgmma for n in hits), names
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_flash_backward_kernel_is_bitwise_repeatable(dev, dtype):
@@ -587,6 +658,25 @@ def test_flash_backward_kernel_is_bitwise_repeatable(dev, dtype):
                                                     window=300)
         for a, b in zip(first, again):
             assert torch.equal(a, b)
+
+
+def test_flash_backward_tensor_core_repeats_at_the_layer_shape(dev):
+    """The bf16 kernels at gemma3_4b's global layer (B 2, S 4,096, H 8,
+    KV 4, D 256) and with window and softcap at D = 200: the same bits from
+    launch to launch (dQ's two partials add in a fixed order)."""
+    from repro_torch.kernels import flash_attention
+    for b, s, h, kv, d, window, cap in ((2, 4096, 8, 4, 256, 0, 0.0),
+                                        (1, 1500, 6, 2, 200, 300, 50.0)):
+        qs, k, v, do = _bwd_inputs(dev, b, s, h, kv, d, torch.bfloat16, 5)
+        kw = dict(window=window, softcap=cap)
+        o, lse = flash_attention.flash_attention_fwd(qs, k, v, with_lse=True,
+                                                     **kw)
+        first = flash_attention.flash_attention_bwd(qs, k, v, o, do, lse,
+                                                    **kw)
+        again = flash_attention.flash_attention_bwd(qs, k, v, o, do, lse,
+                                                    **kw)
+        for a, b_ in zip(first, again):
+            assert torch.equal(a, b_)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
