@@ -80,7 +80,12 @@ Phases (each one that fails ends the run with a non-zero exit):
      equal the plain version's.  Times the bf16 backward kernel and the
      plain backward at the layer shapes, and torch autograd through causal
      GQA scaled_dot_product_attention (the yardstick) at window 0, softcap
-     0, each beside its bound.
+     0, each beside its bound.  Then both at the attention layers of phase
+     12's architectures (B = 1, S = 4,096): GQA groups of 4, 5 and 7 at D
+     128 (phi35_moe, llama4_scout, llava_next_34b), 10 over one KV head at
+     D 256 with window 2,048 (recurrentgemma_2b) and MHA at D 64
+     (musicgen_medium), f32 and bf16 against the plain versions, the bf16
+     times beside the plain versions', SDPA's (window 0) and the bounds.
   8. LM serving: gemma2_9b at full width and depth (42 layers, 10.16B
      parameters, bf16, random weights from seed 0) through
      repro_torch.launch.serve's engine: one replica, 4 slots, max_seq
@@ -132,8 +137,31 @@ Phases (each one that fails ends the run with a non-zero exit):
  11b. resume on the card: reduced gemma3_4b at 256 tokens, 4 steps straight
      against 2 steps, a checkpoint (which must verify) and a resume for 2
      more; the last losses must be equal, bit for bit.
+ 12. the other architectures at full width, after 11b has freed the card,
+     each from seed 0 in bf16 and the card emptied between them:
+     musicgen_medium (48 of 48 layers), llava_next_34b (60 of 60),
+     phi35_moe (24 of 32: 41.87B parameters do not fit one card),
+     llama4_scout (12 of 48: 107.77B), recurrentgemma_2b (26 of 26) and
+     rwkv6_3b (32 of 32).  Each served through launch.serve.build_engine
+     (config=): one replica, 4 slots, max_seq 4,352, policy ws, greedy, 16
+     new tokens for each of 4 prompts of 4,096 / 1,152 / 128 / 33 tokens;
+     all must complete with 16 tokens, through one bf16 flash launch for
+     each attention layer and prompt; each first token must equal the
+     argmax of a separate prefill (these time the first token), and the
+     4,096-token logits with the kernel must agree with the plain
+     attention's within phase 8's bound.  musicgen_medium,
+     recurrentgemma_2b and rwkv6_3b: one decode step after 127 tokens must
+     agree with the prefill of 128; llava_next_34b: a prefill with its
+     1,152 frontend embeddings must agree, kernel against plain, and move
+     the logits.  Then, for the five with attention, one loss-and-gradient
+     evaluation of one cycle at full width (B = 1, S = 4,096), the kernel
+     pair against the plain pair (2 forward and 1 backward launch an
+     attention layer): the loss, the grad norm and the gradients of the
+     embedding, layer 0 and (MoE) the last layer's experts' w_down.
+     Prints TTFT, decode tokens/s, engine tok/s and peak memory, and
+     {"archs": {...}}.
 
-Before the kernels' JSON record come {"farm_model": {...}}, {"train":
+Before the kernels' JSON record come {"archs": {...}}, {"farm_model": {...}}, {"train":
 {...}} and {"ensemble": {...}} (trees/s, the OOB score, coverage and time
 split, the chaos phase's failures and wall times); the last line is {"ok":
 true, "device": {...}}.  It imports
@@ -143,6 +171,7 @@ configuration (repro_torch.configs.yadt.WORKLOAD.grow) are the port's.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import re
@@ -243,6 +272,18 @@ BWD_LAYERS = {
 BWD_F32_ATOL = 2e-4
 BWD_BF16_REL = 1e-2
 LSE_ATOL = 1e-4
+# Phase 7, the attention layers of phase 12's architectures at the prompt
+# and training length (B = 1, S = 4,096), (H, KV, D, window): GQA groups of
+# 4, 5, 7 and 10 query heads (recurrentgemma_2b's local layers: one KV head,
+# window 2,048) and musicgen_medium's MHA.  Forward and backward, f32 and
+# bf16, against the plain versions with the tolerances above.
+ARCH_LAYERS = {
+    "musicgen_medium": (24, 24, 64, 0),
+    "llava_next_34b": (56, 8, 128, 0),
+    "phi35_moe": (32, 8, 128, 0),
+    "llama4_scout": (40, 8, 128, 0),
+    "recurrentgemma_2b": (10, 1, 256, 2048),
+}
 
 # Phase 8: gemma2_9b serving at full width and depth.
 LM_ARCH = "gemma2_9b"
@@ -282,6 +323,37 @@ TRAIN_GRAD_REL_L2 = 0.015
 TRAIN_GNORM_REL = 2e-4
 # Phase 11b: resume on the card, reduced gemma3_4b at 256 tokens.
 RESUME_SEQ = 256
+
+# Phase 12: the other architectures served at full width on one card,
+# (arch, layers run).  Depth is cut only where the bf16 weights do not fit
+# 80 GB beside the cache and the prefill's working set: phi35_moe holds
+# 2.601 GB a layer and 0.525 GB of embedding and head (24 of 32 layers,
+# 62.9 GB), llama4_scout 4.404 GB a layer and 4.138 GB (12 of 48, 57.0 GB).
+ARCHS = (("musicgen_medium", 48), ("llava_next_34b", 60), ("phi35_moe", 24),
+         ("llama4_scout", 12), ("recurrentgemma_2b", 26), ("rwkv6_3b", 32))
+ARCHS_SEED = 0
+ARCHS_SLOTS = 4
+ARCHS_MAX_SEQ = 4_352
+ARCHS_MAX_NEW = 16
+# every length is allowed for rwkv6_3b: at most one 128-token chunk, or a
+# multiple of it
+ARCHS_PROMPTS = (4_096, 1_152, 128, 33)
+# decode after a prefill of 127 tokens against a prefill of 128
+# (tests/test_models_smoke.py::test_decode_matches_prefill, at full size)
+ARCHS_DECODE_CHECK = ("musicgen_medium", "recurrentgemma_2b", "rwkv6_3b")
+ARCHS_DECODE_PROMPT = 127
+# Measured on an H100 (bf16, full depth): relative L2 0.018 (musicgen),
+# 0.037 (recurrentgemma), 0.017 (rwkv6): one decode step rounds apart from
+# the prefill's 128-token pass.  Limit about 2.7x the largest.
+ARCHS_DECODE_REL_TOL = 0.1
+# llava_next_34b's 1,152 frontend embeddings must move the 4,096-token
+# logits by more than this relative L2 (measured 1.38 on an H100; kernel
+# against plain moves them 0.022).
+ARCHS_FRONTEND_MOVED = 0.2
+# one cycle's loss and gradients, kernel pair against plain pair
+ARCHS_LOSS_ATOL = TRAIN_LOSS_ATOL
+ARCHS_GNORM_REL = TRAIN_GNORM_REL
+ARCHS_GRAD_REL_L2 = TRAIN_GRAD_REL_L2
 
 # Phase 9: the c45 oracle and the farm under chaos on census_pums, cut to
 # CHAOS_SCALE of its 299,285 cases (29,928): on the full set the oracle
@@ -1280,11 +1352,26 @@ def _bwd_design(gen, dev) -> dict:
     return design
 
 
+def _sdpa_bwd_ms(qs, k, v, do) -> float:
+    """torch autograd through causal GQA SDPA on the scaled q (scale 1),
+    heads-major leaves made outside the timed region; never called by the
+    port."""
+    import torch
+    import torch.nn.functional as F
+    leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+              for t in (qs, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                         enable_gqa=True, scale=1.0)
+    do_t = do.transpose(1, 2)
+    return cuda_ms(lambda: torch.autograd.grad(out, leaves, do_t,
+                                               retain_graph=True),
+                   reps=3, warmup=1)
+
+
 def check_flash_bwd(gen, dev) -> dict:
     """Phase 7, the backward.  Returns the kernel's record (launches filled
     in by phase 11)."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention, ref
     torch.backends.cuda.matmul.allow_tf32 = False
     max_err = {"float32": 0.0, "bfloat16": 0.0}
@@ -1307,19 +1394,8 @@ def check_flash_bwd(gen, dev) -> dict:
             qs, k, v, o, do, lse, **kw), reps=10)
         plain_ms = cuda_ms(lambda: ref.flash_attention_bwd_ref(
             qs, k, v, o, do, lse, **kw), reps=2, warmup=1)
-        library_ms = None
-        if window == 0 and cap == 0:
-            # torch autograd through causal GQA SDPA on the scaled q
-            # (scale 1), heads-major leaves made outside the timed region;
-            # never called by the port
-            leaves = [t.transpose(1, 2).detach().requires_grad_(True)
-                      for t in (qs, k, v)]
-            out = F.scaled_dot_product_attention(
-                *leaves, is_causal=True, enable_gqa=True, scale=1.0)
-            do_t = do.transpose(1, 2)
-            library_ms = cuda_ms(lambda: torch.autograd.grad(
-                out, leaves, do_t, retain_graph=True), reps=3, warmup=1)
-            del out, leaves
+        library_ms = (_sdpa_bwd_ms(qs, k, v, do) if window == 0 and cap == 0
+                      else None)
         times[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                            **dict(zip(("bound_ms", "bound_by"),
                                       _bwd_bound(case, "bfloat16"))))
@@ -1356,12 +1432,86 @@ def check_flash_bwd(gen, dev) -> dict:
                        BWD_LAYERS["gemma3_4b_global"]), dtype="bfloat16"))
 
 
+def check_flash_archs(gen, dev) -> dict:
+    """Phase 7 at the attention layers of phase 12's architectures
+    (ARCH_LAYERS): forward and backward against their plain versions in f32
+    and bf16, then the bf16 kernels' times beside the plain versions',
+    SDPA's forward and backward (window 0) and their bounds."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for name, (h, kv, d, window) in ARCH_LAYERS.items():
+        rec = dict(B=1, S=TRAIN_S, H=h, KV=kv, D=d, window=window)
+        for dtype in ("float32", "bfloat16"):
+            case = (1, TRAIN_S, h, kv, d, window, 0.0, dtype)
+            rec[f"fwd_max_abs_err_{dtype}"] = _flash_case(case, gen, dev)
+            err, lse_err = _bwd_case(case[:7], dtype, gen, dev)
+            rec[f"bwd_max_abs_err_{dtype}"] = err
+            rec[f"lse_max_abs_err_{dtype}"] = lse_err
+            torch.cuda.empty_cache()
+        case = (1, TRAIN_S, h, kv, d, window, 0.0, "bfloat16")
+        q, k, v = _flash_inputs(case, gen, dev)
+        rec["fwd_ms"] = cuda_ms(lambda: flash_attention.flash_attention(
+            q, k, v, window=window), reps=10)
+        rec["fwd_plain_ms"] = cuda_ms(lambda: ref.flash_attention_ref(
+            q, k, v, window=window), reps=3, warmup=1)
+        rec["fwd_bound_ms"], rec["fwd_bound_by"] = _flash_bound(case)
+        rec["fwd_library_ms"] = None
+        if window == 0:
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            rec["fwd_library_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
+            del qt, kt, vt
+        qs, k, v, o, do, lse = _bwd_inputs(case[:7], "bfloat16", gen, dev)
+        kw = dict(window=window)
+        rec["bwd_ms"] = cuda_ms(lambda: flash_attention.flash_attention_bwd(
+            qs, k, v, o, do, lse, **kw), reps=10)
+        rec["bwd_plain_ms"] = cuda_ms(lambda: ref.flash_attention_bwd_ref(
+            qs, k, v, o, do, lse, **kw), reps=2, warmup=1)
+        rec["bwd_bound_ms"], rec["bwd_bound_by"] = _bwd_bound(case[:7],
+                                                              "bfloat16")
+        rec["bwd_library_ms"] = (_sdpa_bwd_ms(qs, k, v, do) if window == 0
+                                 else None)
+        del q, qs, k, v, o, do, lse
+        torch.cuda.empty_cache()
+        out[name] = rec
+        lib = {p: ("" if rec[f"{p}_library_ms"] is None else
+                   f", SDPA {rec[f'{p}_library_ms']:.4f}")
+               for p in ("fwd", "bwd")}
+        print(f"flash at {name}'s layer B=1 S={TRAIN_S} H={h} KV={kv} D={d} "
+              f"window={window} bf16: forward {rec['fwd_ms']:.4f} ms (plain "
+              f"{rec['fwd_plain_ms']:.4f}{lib['fwd']}; bound "
+              f"{rec['fwd_bound_ms']:.4f} by {rec['fwd_bound_by']}), backward "
+              f"{rec['bwd_ms']:.4f} ms (plain {rec['bwd_plain_ms']:.4f}"
+              f"{lib['bwd']}; bound {rec['bwd_bound_ms']:.4f} by "
+              f"{rec['bwd_bound_by']}); max |kernel - plain| forward f32 "
+              f"{rec['fwd_max_abs_err_float32']:.3g} bf16 "
+              f"{rec['fwd_max_abs_err_bfloat16']:.3g}, backward f32 "
+              f"{rec['bwd_max_abs_err_float32']:.3g} bf16 "
+              f"{rec['bwd_max_abs_err_bfloat16']:.3g}")
+    return out
+
+
 # --------------------------------------------------------------------------
 # phase 8: gemma2_9b serving at full width and depth
 # --------------------------------------------------------------------------
 
-def serve_lm(dev) -> dict:
-    """Phase 8.  Returns what it measured, the flash launches included."""
+def _serve_checked(cfg, dev, *, slots, max_seq, prompt_lens, max_new,
+                   seed) -> tuple[dict, dict]:
+    """Serve one prompt of each of ``prompt_lens`` through ``cfg`` (bf16
+    weights from ``seed``) with launch.serve's engine: one replica,
+    ``slots`` slots, ``max_seq`` positions, policy ws, greedy, ``max_new``
+    tokens each.  Every request must complete with ``max_new`` tokens and
+    no failure, through one bf16 flash launch for each attention layer and
+    prompt; each first token must equal the argmax of a separate prefill
+    of its prompt (these, on an idle card, time the first token), and the
+    first prompt's logits with the kernel must agree with the plain
+    attention's, the MoE's routing pinned (:class:`_PinnedRouting`).
+    Returns (what it measured, the model, weights and plain model with the
+    first prompt and its kernel logits for further checks)."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention
@@ -1370,111 +1520,136 @@ def serve_lm(dev) -> dict:
     from repro_torch.obs.trace import Tracer
     from repro_torch.serve.engine import Request
 
+    name = cfg.name
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     tracer = Tracer()
     (cfg, model, params, engine), init_s = _timed(
         lambda: serve_mod.build_engine(
-            LM_ARCH, reduced=False, n_replicas=1, n_slots=LM_SLOTS,
-            max_seq=LM_MAX_SEQ, policy="ws", seed=LM_SEED, device=dev,
-            tracer=tracer))
+            config=cfg, n_replicas=1, n_slots=slots, max_seq=max_seq,
+            policy="ws", seed=seed, device=dev, tracer=tracer))
     n_params = sum(p.numel() for p in params.parameters())
-    check(cfg.n_layers == 42 and n_params == cfg.param_count() + cfg.d_model,
-          f"{LM_ARCH}: {cfg.n_layers} layers, {n_params} parameters")
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in params.parameters())
     cache_bytes = sum(t.numel() * t.element_size()
                       for slot in engine.replicas[0].cache
                       for t in slot.values())
-    rng = np.random.default_rng(LM_SEED)
+    n_attn = sum(cfg.block_kind(i) in ("global", "local")
+                 for i in range(cfg.n_layers))
+    rng = np.random.default_rng(seed)
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
-               for n in LM_PROMPTS]
-    requests = [Request(uid=i, prompt=p, max_new_tokens=LM_MAX_NEW)
+               for n in prompt_lens]
+    requests = [Request(uid=i, prompt=p, max_new_tokens=max_new)
                 for i, p in enumerate(prompts)]
 
-    flash_attention.LAUNCHES = 0
-    flash_attention.LAUNCHES_BY_DTYPE.update(bfloat16=0, float32=0)
+    flash_attention.reset_launches()
     out = serve_mod.drain(engine, requests)
-    launches = flash_attention.LAUNCHES
     by_dtype = dict(flash_attention.LAUNCHES_BY_DTYPE)
     peak = torch.cuda.max_memory_allocated()
-    check(not engine.failed, f"{len(engine.failed)} requests failed: "
-          f"{engine.failed[:2]}")
+    check(not engine.failed, f"{name}: {len(engine.failed)} requests "
+          f"failed: {engine.failed[:2]}")
     check(out["completed"] == len(prompts) and all(
-        len(c.tokens) == LM_MAX_NEW for c in engine.completed),
-          f"{out['completed']} completions, tokens "
+        len(c.tokens) == max_new for c in engine.completed),
+          f"{name}: {out['completed']} completions, tokens "
           f"{[len(c.tokens) for c in engine.completed]}")
-    check(launches == cfg.n_layers * len(prompts),
-          f"{launches} flash launches over the serve run, not "
-          f"{cfg.n_layers} x {len(prompts)}")
-    check(by_dtype == {"bfloat16": launches, "float32": 0},
-          f"flash launches by dtype {by_dtype}: the bf16 serving path must "
-          f"go through the tensor-core kernel only")
+    check(by_dtype == {"bfloat16": n_attn * len(prompts), "float32": 0},
+          f"{name}: flash launches by dtype {by_dtype} over the serve run, "
+          f"not {n_attn} attention layers x {len(prompts)} prompts, all on "
+          f"the bf16 tensor-core kernel")
     spans = tracer.span_summary()
     admit_s = spans["engine.admit"]["total_us"] / 1e6
     tick_s = spans["replica0.tick"]["total_us"] / 1e6
     n_decode = out["tokens"] - len(prompts)
-
-    # each first token is the argmax of a separate prefill of its prompt;
-    # those prefills, on an idle card, time the first token
+    stats = engine.stats()
     first = {c.uid: c.tokens[0] for c in engine.completed}
+    del engine
+    torch.cuda.empty_cache()
+
     ttft = {}
+    pin = _PinnedRouting()
     for i, p in enumerate(prompts):
-        (logits, _), dt = _timed(lambda: model.prefill(
-            params, torch.as_tensor(p, device=dev)[None], max_seq=len(p)))
+        with pin.run("record" if i == 0 else "off"):
+            (logits, _), dt = _timed(lambda: model.prefill(
+                params, torch.as_tensor(p, device=dev)[None],
+                max_seq=len(p)))
         ttft[len(p)] = dt
         check(int(torch.argmax(logits, -1)[0]) == first[i],
-              f"request {i} ({len(p)} tokens): first token {first[i]} != "
-              f"the argmax of its prefill")
+              f"{name} request {i} ({len(p)} tokens): first token "
+              f"{first[i]} != the argmax of its prefill")
         if i == 0:
-            kernel_logits = logits[0].float()
+            kernel_logits = logits[0]
         del logits
     plain = build_model(cfg, impl="torch")
-    (plain_logits, _), plain_s = _timed(lambda: plain.prefill(
-        params, torch.as_tensor(prompts[0], device=dev)[None],
-        max_seq=len(prompts[0])))
-    plain_logits = plain_logits[0].float()
-    diff = (kernel_logits - plain_logits)
-    abs_err = diff.abs().max().item()
-    rel_err = (diff.norm() / plain_logits.norm()).item()
+    long = torch.as_tensor(prompts[0], device=dev)[None]
+    with pin.run("replay"):
+        (plain_logits, _), plain_s = _timed(lambda: plain.prefill(
+            params, long, max_seq=len(prompts[0])))
+    plain_logits = plain_logits[0]
+    abs_err, rel_err = _logit_diff(kernel_logits, plain_logits)
     same_top = int(kernel_logits.argmax()) == int(plain_logits.argmax())
     check(rel_err <= LM_LOGIT_REL_TOL and abs_err <= LM_LOGIT_ABS_TOL,
-          f"{LM_PROMPTS[0]}-token prefill logits, kernel vs plain attention: "
-          f"relative L2 {rel_err:.3g} (limit {LM_LOGIT_REL_TOL}), max "
-          f"|diff| {abs_err:.3g} (limit {LM_LOGIT_ABS_TOL})")
-    n_prompt = sum(LM_PROMPTS)
+          f"{name}: {prompt_lens[0]}-token prefill logits, kernel vs plain "
+          f"attention: relative L2 {rel_err:.3g} (limit {LM_LOGIT_REL_TOL}), "
+          f"max |diff| {abs_err:.3g} (limit {LM_LOGIT_ABS_TOL})")
     info = dict(
-        arch=LM_ARCH, layers=cfg.n_layers, parameters=n_params,
-        weight_bytes=weight_bytes, cache_bytes=cache_bytes,
-        init_s=init_s, slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
-        prompts=list(LM_PROMPTS), max_new_tokens=LM_MAX_NEW,
-        completed=out["completed"], tokens=out["tokens"],
-        serve_s=out["seconds"], tok_per_s=out["tok_per_s"],
-        admit_s=admit_s, prefill_tok_per_s_in_engine=n_prompt / admit_s,
+        arch=name, layers=cfg.n_layers, parameters=n_params,
+        weight_bytes=weight_bytes, cache_bytes=cache_bytes, init_s=init_s,
+        slots=slots, max_seq=max_seq, prompts=list(prompt_lens),
+        max_new_tokens=max_new, completed=out["completed"],
+        tokens=out["tokens"], serve_s=out["seconds"],
+        tok_per_s=out["tok_per_s"], admit_s=admit_s,
+        prefill_tok_per_s_in_engine=sum(prompt_lens) / admit_s,
         decode_s=tick_s, decode_tokens=n_decode,
-        decode_tok_per_s=n_decode / tick_s,
-        ticks=engine.stats()["ticks"], flash_launches=launches,
+        decode_tok_per_s=n_decode / tick_s, ticks=stats["ticks"],
+        attention_layers=n_attn, flash_launches=by_dtype["bfloat16"],
         flash_launches_by_dtype=by_dtype,
         ttft_s={str(k): v for k, v in ttft.items()},
-        prefill_tok_per_s=n_prompt / sum(ttft.values()),
+        prefill_tok_per_s=sum(prompt_lens) / sum(ttft.values()),
         plain_prefill_s=plain_s, logits_max_abs_diff=abs_err,
         logits_rel_l2=rel_err, logits_same_argmax=same_top,
-        peak_bytes=peak, stats=engine.stats())
-    for n, t in ttft.items():
+        peak_bytes=peak, stats=stats)
+    if cfg.is_moe:
+        # beside it, the plain run routing on its own
+        free = plain.prefill(params, long, max_seq=len(prompts[0]))[0][0]
+        info.update(routing_flips=pin.flips,
+                    logits_rel_l2_own_routing=_logit_diff(kernel_logits,
+                                                          free)[1])
+    return info, dict(model=model, params=params, plain=plain, long=long,
+                      kernel_logits=kernel_logits)
+
+
+def serve_lm(dev) -> dict:
+    """Phase 8.  Returns what it measured, the flash launches included."""
+    import torch
+    from repro_torch.configs import base as cfgbase
+    cfg = cfgbase.get_config(LM_ARCH)
+    info, ctx = _serve_checked(cfg, dev, slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                               prompt_lens=LM_PROMPTS, max_new=LM_MAX_NEW,
+                               seed=LM_SEED)
+    del ctx
+    torch.cuda.empty_cache()
+    check(info["layers"] == 42 and
+          info["parameters"] == cfg.param_count() + cfg.d_model,
+          f"{LM_ARCH}: {info['layers']} layers, {info['parameters']} "
+          f"parameters")
+    for n, t in info["ttft_s"].items():
         print(f"lm: time to first token, {n} tokens: {t * 1e3:.1f} ms")
     print(f"lm: prefill {info['prefill_tok_per_s']:.1f} tokens/s (8 "
           f"separate prefills); decode {info['decode_tok_per_s']:.2f} "
-          f"tokens/s over {n_decode} tokens in {tick_s:.3f} s of ticks; "
-          f"engine {out['tok_per_s']:.2f} tok/s ({out['tokens']} tokens in "
-          f"{out['seconds']:.3f} s); peak memory {peak / 1e9:.3f} GB "
-          f"(weights {weight_bytes / 1e9:.3f} GB, cache "
-          f"{cache_bytes / 1e9:.3f} GB); {launches} flash launches")
+          f"tokens/s over {info['decode_tokens']} tokens in "
+          f"{info['decode_s']:.3f} s of ticks; engine "
+          f"{info['tok_per_s']:.2f} tok/s ({info['tokens']} tokens in "
+          f"{info['serve_s']:.3f} s); peak memory "
+          f"{info['peak_bytes'] / 1e9:.3f} GB (weights "
+          f"{info['weight_bytes'] / 1e9:.3f} GB, cache "
+          f"{info['cache_bytes'] / 1e9:.3f} GB); {info['flash_launches']} "
+          f"flash launches")
     print(f"lm: {LM_PROMPTS[0]}-token logits kernel vs plain attention: "
-          f"max |diff| {abs_err:.4g}, relative L2 {rel_err:.4g}, same argmax "
-          f"{same_top}; plain prefill {plain_s:.3f} s")
+          f"max |diff| {info['logits_max_abs_diff']:.4g}, relative L2 "
+          f"{info['logits_rel_l2']:.4g}, same argmax "
+          f"{info['logits_same_argmax']}; plain prefill "
+          f"{info['plain_prefill_s']:.3f} s")
     print(json.dumps(info))
-    del engine, params, model, plain
-    torch.cuda.empty_cache()
     return info
 
 
@@ -1486,16 +1661,14 @@ def _rel_l2(a, b) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def _loss_and_grads(cfg, params, batch, impl) -> dict:
+def _loss_and_grads(cfg, params, batch, impl, keep) -> dict:
     """One loss-and-gradient evaluation through the ``impl`` attention
-    pair: the loss, the global grad norm and three leaves' gradients."""
+    pair: the loss, the global grad norm and the gradients of the leaves
+    named in ``keep``."""
     import torch
     from repro_torch.models.model import build_model
     from repro_torch.train.optimizer import global_norm
     names = [n for n, _ in params.named_parameters()]
-    last_global = max(i for i in range(cfg.n_layers)
-                      if cfg.block_kind(i) == "global")
-    keep = ("embed", "layers.0.attn.wq", f"layers.{last_global}.mlp.w_down")
     loss, _ = build_model(cfg, impl=impl).loss_fn(params, batch)
     grads = dict(zip(names, torch.autograd.grad(loss,
                                                 list(params.parameters()))))
@@ -1529,10 +1702,13 @@ def train_lm(dev, card: str) -> dict:
     batch = ShardedLoader(LoaderConfig(
         global_batch=TRAIN_BATCH, seq_len=TRAIN_S, vocab_size=cfg.vocab_size,
         seed=TRAIN_SEED)).next_batch()
+    last_global = max(i for i in range(cfg.n_layers)
+                      if cfg.block_kind(i) == "global")
+    keep = ("embed", "layers.0.attn.wq", f"layers.{last_global}.mlp.w_down")
     (kern, kern_s) = _timed(lambda: _loss_and_grads(cfg, params, batch,
-                                                    "cuda"))
+                                                    "cuda", keep))
     (plain, plain_s) = _timed(lambda: _loss_and_grads(cfg, params, batch,
-                                                      "torch"))
+                                                      "torch", keep))
     loss_diff = abs(kern["loss"] - plain["loss"])
     gnorm_rel = abs(kern["gnorm"] - plain["gnorm"]) / plain["gnorm"]
     leaf_rel = {k: _rel_l2(kern["leaves"][k], plain["leaves"][k])
@@ -1629,6 +1805,230 @@ def resume_lm(dev) -> dict:
           f"losses {resumed} equal the straight run's")
     torch.cuda.empty_cache()
     return dict(straight=straight, resumed=resumed)
+
+
+# --------------------------------------------------------------------------
+# phase 12: the other architectures served at full width
+# --------------------------------------------------------------------------
+
+def _logit_diff(got, want) -> tuple[float, float]:
+    """(max |got - want|, relative L2 of the difference) of two logit
+    vectors."""
+    d = got.float() - want.float()
+    return d.abs().max().item(), (d.norm() / want.float().norm()).item()
+
+
+class _PinnedRouting:
+    """The MoE's routing of one run, replayed in another.
+
+    Kernel against plain attention, the two round their bf16 outputs
+    apart, and a router whose top gates lie within that rounding of each
+    other sends the token to another expert, which every later layer
+    carries: on an H100, phi35_moe's 4,096-token logits moved by a relative
+    L2 of 0.28 through 24 layers, where the dense configs move 0.02-0.03.
+    So the plain run routes every token as the kernel run did: ``record``
+    keeps each ``moe.route`` call's experts and tokens, ``replay`` reuses
+    them in the same order (remat's recompute included), with gate values
+    from the plain run's own router (a continuous function of its input).
+    ``flips`` counts the tokens whose own top-k differed."""
+
+    def __init__(self):
+        self.choices: list = []
+        self.flips = 0
+
+    @contextlib.contextmanager
+    def run(self, mode: str):
+        """mode: "record", "replay" or "off" (route as usual)."""
+        import torch
+        from repro_torch.models import moe
+        real = moe.route
+        replayed = iter(self.choices)
+
+        def route(p, xf, s):
+            probs, top_e, sel_score, sel_idx = real(p, xf, s)
+            if mode == "record":
+                self.choices.append((top_e, sel_idx))
+            if mode != "replay":
+                return probs, top_e, sel_score, sel_idx
+            want_e, want_idx = next(replayed)
+            self.flips += int((top_e != want_e).any(-1).sum())
+            top_p = probs.gather(1, want_e)
+            gate = torch.zeros_like(probs).scatter(
+                1, want_e, top_p / top_p.sum(-1, keepdim=True))
+            return probs, want_e, gate.T.gather(1, want_idx), want_idx
+
+        moe.route = route
+        try:
+            yield self
+        finally:
+            moe.route = real
+
+
+def _serve_arch(cfg, dev) -> dict:
+    """Phase 12's serving part for one config (its depth already cut)."""
+    import torch
+    from repro_torch.models.frontends import fake_frontend_embeds
+
+    name = cfg.name
+    info, ctx = _serve_checked(cfg, dev, slots=ARCHS_SLOTS,
+                               max_seq=ARCHS_MAX_SEQ,
+                               prompt_lens=ARCHS_PROMPTS,
+                               max_new=ARCHS_MAX_NEW, seed=ARCHS_SEED)
+    model, params, plain, long = (ctx[k] for k in ("model", "params",
+                                                   "plain", "long"))
+    if name in ARCHS_DECODE_CHECK:
+        # one decode step after a prefill of 127 tokens against the prefill
+        # of those 128 tokens
+        p = long[0, :ARCHS_DECODE_PROMPT]
+        n = ARCHS_DECODE_PROMPT + 1
+        logits, cache = model.prefill(params, p[None], max_seq=n)
+        nxt = torch.argmax(logits, -1)[:, None]
+        dec, _ = model.decode_step(params, cache, nxt, ARCHS_DECODE_PROMPT)
+        ref_logits, _ = model.prefill(params, torch.cat([p[None], nxt], 1),
+                                      max_seq=n)
+        d_abs, d_rel = _logit_diff(dec[0], ref_logits[0])
+        info.update(decode_vs_prefill_max_abs_diff=d_abs,
+                    decode_vs_prefill_rel_l2=d_rel)
+        check(d_rel <= ARCHS_DECODE_REL_TOL,
+              f"{name}: decode after {ARCHS_DECODE_PROMPT} tokens vs prefill "
+              f"of {n}: relative L2 {d_rel:.3g} (limit "
+              f"{ARCHS_DECODE_REL_TOL}), max |diff| {d_abs:.3g}")
+        del cache
+    if cfg.frontend_tokens:
+        fe = fake_frontend_embeds(cfg, 1, seed=ARCHS_SEED, device=dev)
+        pin = _PinnedRouting()
+        with pin.run("record"):
+            fused = model.prefill(params, long, fe,
+                                  max_seq=long.shape[1])[0][0]
+        with pin.run("replay"):
+            fused_plain = plain.prefill(params, long, fe,
+                                        max_seq=long.shape[1])[0][0]
+        f_abs, f_rel = _logit_diff(fused, fused_plain)
+        _, moved = _logit_diff(fused, ctx["kernel_logits"])
+        info.update(frontend_logits_max_abs_diff=f_abs,
+                    frontend_logits_rel_l2=f_rel,
+                    frontend_moved_rel_l2=moved)
+        check(f_rel <= LM_LOGIT_REL_TOL and f_abs <= LM_LOGIT_ABS_TOL,
+              f"{name}: prefill with {cfg.frontend_tokens} frontend "
+              f"embeddings, kernel vs plain: relative L2 {f_rel:.3g}, max "
+              f"|diff| {f_abs:.3g}")
+        check(moved > ARCHS_FRONTEND_MOVED,
+              f"{name}: the frontend embeddings moved the last logits by a "
+              f"relative L2 of {moved:.3g} only (at most "
+              f"{ARCHS_FRONTEND_MOVED} is the same prefill)")
+    del ctx, params, model, plain, long
+    torch.cuda.empty_cache()
+    return info
+
+
+def _grad_arch(cfg, dev) -> dict:
+    """Phase 12's loss-and-gradient part: one cycle of ``cfg`` at full
+    width, B = 1, S = 4,096, the kernel pair against the plain pair."""
+    import dataclasses
+    import torch
+    from repro_torch.data.loader import LoaderConfig, ShardedLoader
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models.frontends import fake_frontend_embeds
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(cfg, n_layers=len(cfg.block_pattern))
+    gen = torch.Generator(dev)
+    gen.manual_seed(ARCHS_SEED)
+    params = build_model(cfg).init(gen)
+    batch = ShardedLoader(LoaderConfig(
+        global_batch=1, seq_len=TRAIN_S, vocab_size=cfg.vocab_size,
+        seed=ARCHS_SEED)).next_batch()
+    if cfg.frontend_tokens:
+        batch["frontend_embeds"] = fake_frontend_embeds(cfg, 1, device=dev)
+    block = {"rglru": "rec.w_in", "rwkv": "tm.wr"}.get(cfg.block_kind(0),
+                                                      "attn.wq")
+    keep = ["embed", f"layers.0.{block}"]
+    if cfg.is_moe:
+        keep.append(f"layers.{cfg.n_layers - 1}.moe.w_down")
+    flash_attention.reset_launches()
+    pin = _PinnedRouting()
+    with pin.run("record"):
+        kern, kern_s = _timed(lambda: _loss_and_grads(cfg, params, batch,
+                                                      "cuda", keep))
+    fwd = dict(flash_attention.LAUNCHES_BY_DTYPE)
+    bwd = dict(flash_attention.LAUNCHES_BWD_BY_DTYPE)
+    with pin.run("replay"):
+        plain, plain_s = _timed(lambda: _loss_and_grads(cfg, params, batch,
+                                                        "torch", keep))
+    n_attn = sum(cfg.block_kind(i) in ("global", "local")
+                 for i in range(cfg.n_layers))
+    check(fwd == {"bfloat16": 2 * n_attn, "float32": 0} and
+          bwd == {"bfloat16": n_attn, "float32": 0},
+          f"{cfg.name} loss and gradients: flash launches forward {fwd}, "
+          f"backward {bwd}, not {2 * n_attn} and {n_attn} bf16 (one "
+          f"rematerialised cycle)")
+    loss_diff = abs(kern["loss"] - plain["loss"])
+    gnorm_rel = abs(kern["gnorm"] - plain["gnorm"]) / plain["gnorm"]
+    leaf_rel = {k: _rel_l2(kern["leaves"][k], plain["leaves"][k])
+                for k in keep}
+    del params, kern["leaves"], plain["leaves"]
+    torch.cuda.empty_cache()
+    print(f"{cfg.name}: one cycle ({cfg.n_layers} layers), B=1 S={TRAIN_S}, "
+          f"kernel vs plain attention: loss {kern['loss']:.6f} / "
+          f"{plain['loss']:.6f} (|diff| {loss_diff:.3g}), grad norm "
+          f"{kern['gnorm']:.6g} / {plain['gnorm']:.6g} (rel {gnorm_rel:.3g}),"
+          f" gradient relative L2 "
+          f"{', '.join(f'{k} {v:.3g}' for k, v in leaf_rel.items())}; "
+          f"{kern_s:.2f} s / {plain_s:.2f} s; {pin.flips} routing flips "
+          f"pinned")
+    check(loss_diff <= ARCHS_LOSS_ATOL and gnorm_rel <= ARCHS_GNORM_REL and
+          all(v <= ARCHS_GRAD_REL_L2 for v in leaf_rel.values()),
+          f"{cfg.name} loss and gradients, kernel vs plain attention: loss "
+          f"|diff| {loss_diff:.3g} (limit {ARCHS_LOSS_ATOL}), grad norm rel "
+          f"{gnorm_rel:.3g} (limit {ARCHS_GNORM_REL}), leaves {leaf_rel} "
+          f"(limit {ARCHS_GRAD_REL_L2})")
+    return dict(layers=cfg.n_layers, loss_kernel=kern["loss"],
+                loss_plain=plain["loss"], gnorm_kernel=kern["gnorm"],
+                gnorm_plain=plain["gnorm"], loss_abs_diff=loss_diff,
+                gnorm_rel_diff=gnorm_rel, grad_rel_l2=leaf_rel,
+                flash_fwd_launches=fwd["bfloat16"],
+                flash_bwd_launches=bwd["bfloat16"], kernel_s=kern_s,
+                plain_s=plain_s, routing_flips=pin.flips)
+
+
+def serve_archs(dev, card: str) -> dict:
+    """Phase 12 on the card ``card`` (name, power limit): each of ARCHS
+    served at full width (and its stated depth), then, where it has
+    attention, one loss-and-gradient evaluation of one cycle."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import base as cfgbase
+    out = {}
+    for arch, n_layers in ARCHS:
+        full = cfgbase.get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=n_layers)
+        info = _serve_arch(cfg, dev)
+        info.update(card=card, full_layers=full.n_layers,
+                    full_parameters=full.param_count())
+        if info["attention_layers"]:
+            info["grad"] = _grad_arch(full, dev)
+        torch.cuda.empty_cache()
+        out[arch] = info
+        decode = ("" if arch not in ARCHS_DECODE_CHECK else
+                  f"; decode vs prefill relative L2 "
+                  f"{info['decode_vs_prefill_rel_l2']:.3g}")
+        if "routing_flips" in info:
+            decode += (f" (the plain run pinned to the kernel run's routing,"
+                       f" {info['routing_flips']} tokens flipped; on its own"
+                       f" routing {info['logits_rel_l2_own_routing']:.3g})")
+        print(f"{arch}: {n_layers} of {full.n_layers} layers, "
+              f"{info['parameters']} parameters, weights "
+              f"{info['weight_bytes'] / 1e9:.3f} GB, cache "
+              f"{info['cache_bytes'] / 1e9:.3f} GB: TTFT "
+              f"{info['ttft_s'][str(ARCHS_PROMPTS[0])] * 1e3:.1f} ms at "
+              f"{ARCHS_PROMPTS[0]} tokens; decode "
+              f"{info['decode_tok_per_s']:.2f} tokens/s; engine "
+              f"{info['tok_per_s']:.2f} tok/s; peak memory "
+              f"{info['peak_bytes'] / 1e9:.3f} GB; {info['flash_launches']} "
+              f"flash launches; {ARCHS_PROMPTS[0]}-token logits kernel vs "
+              f"plain relative L2 {info['logits_rel_l2']:.3g}{decode}; on "
+              f"{card}")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1910,6 +2310,11 @@ def main() -> int:
     t0 = time.perf_counter()
     flash_rec = check_flash(gen, dev)
     bwd_rec = check_flash_bwd(gen, dev)
+    arch_layers = check_flash_archs(gen, dev)
+    for rec, other in ((flash_rec, ("bwd", "lse")), (bwd_rec, ("fwd",))):
+        rec["arch_layers"] = {
+            name: {k: v for k, v in layer.items() if not k.startswith(other)}
+            for name, layer in arch_layers.items()}
     times["flash_s"] = time.perf_counter() - t0
 
     # ---- 8. gemma2_9b serving at full width and depth
@@ -1948,10 +2353,22 @@ def main() -> int:
     resumed = resume_lm(dev)
     times["lm_resume_s"] = time.perf_counter() - t0
     bwd_rec["launches"] = trained_lm["flash_bwd_launches"]["bfloat16"]
+    print(json.dumps({"train": dict(trained_lm, resume=resumed)}))
+
+    # ---- 12. the other architectures served at full width
+    t0 = time.perf_counter()
+    archs = serve_archs(dev, card)
+    times["archs_s"] = time.perf_counter() - t0
+    grads = [a["grad"] for a in archs.values() if "grad" in a]
     flash_rec["launches_by_path"] = dict(
         serve=lm["flash_launches"],
-        train=trained_lm["flash_fwd_launches"]["bfloat16"])
-    print(json.dumps({"train": dict(trained_lm, resume=resumed)}))
+        train=trained_lm["flash_fwd_launches"]["bfloat16"],
+        archs_serve={k: a["flash_launches"] for k, a in archs.items()},
+        archs_grad=sum(g["flash_fwd_launches"] for g in grads))
+    bwd_rec["launches_by_path"] = dict(
+        train=bwd_rec["launches"],
+        archs_grad=sum(g["flash_bwd_launches"] for g in grads))
+    print(json.dumps({"archs": archs}))
 
     print(json.dumps({"ensemble": dict(
         trees=FOREST_TREES, workers=FOREST_WORKERS,

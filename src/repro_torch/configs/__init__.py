@@ -1,2 +1,2 @@
-"""Per-architecture configs of the ported LM serving path; see
+"""Per-architecture configs of the port; see
 :func:`repro_torch.configs.base.get_config`."""

@@ -2,10 +2,9 @@
 (``--arch <id>``).
 
 ``ModelConfig``, ``ShapeSpec``, ``SHAPES`` and ``reduced()`` are verbatim
-copies of ``repro.configs.base``.  Only the architectures whose every block
-kind is ported have a config here (:data:`ARCH_IDS`, the LMs, and
-``yadt``, the tree workload); any other name raises, naming the ROADMAP
-item that ports it.
+copies of ``repro.configs.base``.  Every architecture of the JAX package has
+its config here (:data:`ARCH_IDS`, the LMs, and ``yadt``, the tree
+workload); any other name raises.
 """
 
 from __future__ import annotations
@@ -14,19 +13,13 @@ import dataclasses
 import importlib
 from typing import Iterable
 
-#: Architectures of the JAX package (``repro.configs.base.ARCH_IDS``).
-JAX_ARCH_IDS = (
+#: The LMs, in the order of the JAX ``repro.configs.base.ARCH_IDS``.
+ARCH_IDS = (
     "phi35_moe", "llama4_scout", "llava_next_34b", "rwkv6_3b", "phi4_mini",
     "gemma3_4b", "gemma2_9b", "yi_6b", "musicgen_medium", "recurrentgemma_2b",
-    "yadt",
 )
-#: The ported LMs: global/local attention with a dense MLP.
-ARCH_IDS = ("gemma2_9b", "yi_6b", "gemma3_4b", "phi4_mini")
-#: The ported tree workload (``configs/yadt.py``), no LM.
+#: The tree workload (``configs/yadt.py``), no LM.
 TREE_ARCH_IDS = ("yadt",)
-NOT_PORTED = ("ROADMAP.md, the other architectures and block kinds (MoE, "
-              "RWKV, RG-LRU, frontends: llama4_scout, llava_next_34b, "
-              "musicgen_medium, phi35_moe, recurrentgemma_2b, rwkv6_3b)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,11 +112,8 @@ SHAPES: dict[str, ShapeSpec] = {
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in ARCH_IDS + TREE_ARCH_IDS:
-        known = "an architecture of the JAX package" if arch in JAX_ARCH_IDS \
-            else "not an architecture of the repo"
-        raise ValueError(f"--arch {arch!r} is not ported ({known}); ported: "
-                         f"{', '.join(ARCH_IDS + TREE_ARCH_IDS)}; see "
-                         f"{NOT_PORTED}")
+        raise ValueError(f"--arch {arch!r} is not an architecture of the "
+                         f"repo; known: {', '.join(ARCH_IDS + TREE_ARCH_IDS)}")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.CONFIG
 

@@ -1,0 +1,11 @@
+"""phi3.5-moe-42b-a6.6b [hf:microsoft/Phi-3.5-MoE-instruct]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi35_moe", family="moe",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8, head_dim=128,
+    d_ff=6400, vocab_size=32064,
+    n_experts=16, experts_per_token=2,
+    block_pattern=("global",),
+    notes="16 experts top-2 every layer; GQA kv=8.",
+)

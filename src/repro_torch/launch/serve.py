@@ -23,13 +23,16 @@ from repro_torch.serve.engine import Replica, Request, ServingEngine
 
 def build_engine(arch: str = "gemma2_9b", *, reduced: bool = True,
                  n_replicas: int = 1, n_slots: int = 4, max_seq: int = 160,
-                 policy: str = "ws", seed: int = 0, device=None, **kw):
+                 policy: str = "ws", seed: int = 0,
+                 config: cfgbase.ModelConfig | None = None, device=None,
+                 **kw):
     """(cfg, model, params, engine): weights from ``seed`` on ``device``
-    (None: the card), ``n_replicas`` replicas sharing them.  ``kw`` goes to
-    :class:`ServingEngine`."""
+    (None: the card), ``n_replicas`` replicas sharing them.  ``config``
+    (e.g. a full-width config cut in depth) replaces ``arch`` and
+    ``reduced``.  ``kw`` goes to :class:`ServingEngine`."""
     dev = resolve_device(device)
-    cfg = cfgbase.get_config(arch)
-    if reduced:
+    cfg = config or cfgbase.get_config(arch)
+    if reduced and config is None:
         cfg = cfgbase.reduced(cfg)
     model = build_model(cfg)
     gen = torch.Generator(dev)
@@ -75,7 +78,7 @@ def serve(arch: str = "gemma2_9b", *, reduced: bool = True,
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma2_9b",
-                    help=f"ported: {', '.join(cfgbase.ARCH_IDS)}")
+                    choices=list(cfgbase.ARCH_IDS))
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--replicas", type=int, default=1)

@@ -22,6 +22,7 @@ import torch
 from repro_torch.configs import base as cfgbase
 from repro_torch.core.device import resolve_device
 from repro_torch.data.loader import LoaderConfig, ShardedLoader
+from repro_torch.models.frontends import fake_frontend_embeds
 from repro_torch.models.model import build_model
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import optimizer as opt
@@ -73,10 +74,12 @@ def train(arch: str = "phi4_mini", *, reduced: bool = True, steps: int = 20,
     straggle = StragglerMonitor()
     pending_save = None
     history, seconds = [], []
-    # no frontend embeds: no ported config has a frontend
+    fe = fake_frontend_embeds(cfg, global_batch // num_hosts, device=dev)
     batches = loader.prefetched(dev)
     for step in range(start_step, steps):
         batch = next(batches)
+        if fe is not None:
+            batch["frontend_embeds"] = fe
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)
         loss = float(metrics["loss"])        # blocks; step wall time is real

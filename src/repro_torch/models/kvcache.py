@@ -1,19 +1,21 @@
-"""Serving cache of global/local attention layers + the single-token decode
-step.
+"""Block-kind-aware serving cache + the single-token decode step.
 
-The port of ``repro.models.kvcache`` for the block kinds the port has
-(``rwkv`` and ``rglru`` state raise).  Cache layout per layer
+The port of ``repro.models.kvcache``.  Cache layout per layer kind
 (B = batch, S = max sequence):
 
   global :  k, v   (B, S, KV, head_dim)
   local  :  k, v   (B, min(window, S), KV, head_dim)  ring buffer, RoPE'd
                    at write, slot ``pos % window``
+  rwkv   :  state (B, H, hd, hd) f32 + token-shift carries tm_prev,
+            cm_prev (B, D)
+  rglru  :  h (B, W) f32 + conv window (B, conv_width - 1, W)
 
-:func:`decode_step` writes the cache **in place** and returns the same
-list: the JAX step returns a new cache, which its ``jit`` (no donation)
-copies whole every tick (8.5 GB at gemma2_9b's full width, 4 slots,
-8,192 positions).  A row whose position is outside the cache is dropped,
-as the JAX scatters' ``mode="drop"`` does.
+:func:`decode_step` writes the attention caches **in place** and puts each
+recurrent layer's new state into its slot's dict, returning the same list:
+the JAX step returns a new cache, which its ``jit`` (no donation) copies
+whole every tick (8.5 GB at gemma2_9b's full width, 4 slots, 8,192
+positions).  A row whose position is outside an attention cache is
+dropped, as the JAX scatters' ``mode="drop"`` does.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels import ref
-from repro_torch.models import layers, transformer
+from repro_torch.models import layers, rglru, rwkv6, transformer
 
 Cache = list[dict[str, torch.Tensor]]
 
@@ -33,29 +35,47 @@ Cache = list[dict[str, torch.Tensor]]
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device=None) -> Cache:
     """Zero caches for every layer on ``device`` (None: the card)."""
-    transformer.check_ported(cfg)
     dev = resolve_device(device)
     dt = layers.torch_dtype(cfg.dtype)
+    f32 = dict(dtype=torch.float32, device=dev)
     cache: Cache = []
     for i in range(cfg.n_layers):
         kind = cfg.block_kind(i)
-        s = max_seq if kind == "global" else min(cfg.window, max_seq)
-        shape = (batch, s, cfg.n_kv_heads, cfg.head_dim)
-        cache.append({"k": torch.zeros(shape, dtype=dt, device=dev),
-                      "v": torch.zeros(shape, dtype=dt, device=dev)})
+        if kind in transformer.ATTN_KINDS:
+            s = max_seq if kind == "global" else min(cfg.window, max_seq)
+            shape = (batch, s, cfg.n_kv_heads, cfg.head_dim)
+            cache.append({"k": torch.zeros(shape, dtype=dt, device=dev),
+                          "v": torch.zeros(shape, dtype=dt, device=dev)})
+        elif kind == "rwkv":
+            hd = cfg.d_model // cfg.n_heads
+            carry = (batch, cfg.d_model)
+            cache.append({
+                "state": torch.zeros((batch, cfg.n_heads, hd, hd), **f32),
+                "tm_prev": torch.zeros(carry, dtype=dt, device=dev),
+                "cm_prev": torch.zeros(carry, dtype=dt, device=dev)})
+        elif kind == "rglru":
+            w = cfg.lru_width or cfg.d_model
+            cache.append({
+                "h": torch.zeros((batch, w), **f32),
+                "conv": torch.zeros((batch, cfg.conv_width - 1, w), dtype=dt,
+                                    device=dev)})
+        else:
+            raise ValueError(f"unknown block kind {kind!r}")
     return cache
 
 
 def prefill_to_cache(cfg: ModelConfig, entries: list[dict], cache: Cache,
                      seq_len: int) -> Cache:
-    """Write ``forward(capture_cache=True)`` entries into ``cache`` (in
-    place; returns it)."""
+    """Write ``forward(capture_cache=True)`` entries into ``cache`` (the
+    attention caches in place, the recurrent states into their slots'
+    dicts); returns it."""
     for i, (entry, slot) in enumerate(zip(entries, cache)):
-        if cfg.block_kind(i) == "global":
+        kind = cfg.block_kind(i)
+        if kind == "global":
             n = entry["k"].shape[1]
             slot["k"][:, :n] = entry["k"]
             slot["v"][:, :n] = entry["v"]
-        else:
+        elif kind == "local":
             # the entry holds the last `window` tokens; place them so the
             # ring index (pos % window) lines up with absolute positions
             w = slot["k"].shape[1]
@@ -64,6 +84,10 @@ def prefill_to_cache(cfg: ModelConfig, entries: list[dict], cache: Cache,
                                device=slot["k"].device) % w
             slot["k"][:, idx] = entry["k"].to(slot["k"].dtype)
             slot["v"][:, idx] = entry["v"].to(slot["v"].dtype)
+        else:
+            # the JAX package's whole-entry replace: a prompt shorter than
+            # the conv window leaves a shorter conv entry, as there
+            slot.update({k: v.to(slot[k].dtype) for k, v in entry.items()})
     return cache
 
 
@@ -135,8 +159,26 @@ def decode_step(params: transformer.Transformer, cfg: ModelConfig,
         x = x + layers.sinusoidal(pos, cfg.d_model)[:, None].to(x.dtype)
     for layer, slot in zip(params.layers, cache):
         h = layers.norm_apply(layer.norm1, x, cfg.norm)
-        x = x + _decode_attn_layer(layer, h, slot, pos)
+        if layer.kind in transformer.ATTN_KINDS:
+            x = x + _decode_attn_layer(layer, h, slot, pos)
+        elif layer.kind == "rwkv":
+            o, state, tm_prev = rwkv6.time_mix_step(
+                layer.tm, layer.spec, h[:, 0], slot["state"],
+                slot["tm_prev"].to(h.dtype))
+            x = x + o[:, None]
+            y = layers.norm_apply(layer.norm2, x, cfg.norm)
+            x = x + rwkv6.channel_mix(layer.tm, layer.spec, y,
+                                      x_prev=slot["cm_prev"].to(y.dtype))
+            slot.update(state=state,
+                        tm_prev=tm_prev.to(slot["tm_prev"].dtype),
+                        cm_prev=y[:, 0].to(slot["cm_prev"].dtype))
+            continue
+        else:
+            o, h_new, conv = rglru.rglru_step(layer.rec, layer.spec, h[:, 0],
+                                              slot["h"], slot["conv"])
+            x = x + o[:, None]
+            slot.update(h=h_new, conv=conv)
         y = layers.norm_apply(layer.norm2, x, cfg.norm)
-        x = x + layers.mlp_apply(layer.mlp, y, cfg.act)
+        x = x + layer.ffn(y)[0]
     x = layers.norm_apply(params.final_norm, x, cfg.norm)
     return params.unembed(x)[:, 0], cache

@@ -6,7 +6,7 @@ sequence-chunked cross-entropy: the (B, S, V) logits are never made whole;
 each chunk's f32 logits are recomputed in the backward
 (``torch.utils.checkpoint`` per chunk, as the JAX ``jax.checkpoint``).  At
 gemma3_4b's 262,144-token vocabulary and B = 2, S = 4,096 whole logits
-would hold 8.6 GB.  ``frontends`` is not needed by the ported architectures.
+would hold 8.6 GB.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
-from repro_torch.models import kvcache, layers, transformer
+from repro_torch.models import frontends, kvcache, layers, transformer
 
 
 IGNORE_ID = -100
@@ -75,7 +75,6 @@ def build_model(cfg: ModelConfig, *, impl: str | None = None) -> Model:
     backward): None picks by the weights' device (the flash kernels on the
     card, their plain versions on the CPU); ``"cuda"`` or ``"torch"`` pins
     one."""
-    transformer.check_ported(cfg)
     if impl not in (None, *layers.IMPLS):
         raise ValueError(f"unknown impl {impl!r}; expected None or one of "
                          f"{layers.IMPLS}")
@@ -90,26 +89,36 @@ def build_model(cfg: ModelConfig, *, impl: str | None = None) -> Model:
 
     def loss_fn(params: transformer.Transformer, batch, *,
                 remat: bool = True) -> tuple[torch.Tensor, dict]:
-        """(mean CE, metrics) of ``batch`` {"tokens", "labels"} (B, S), with
-        autograd on: ``loss.backward()`` or ``torch.autograd.grad`` gives the
-        parameters' gradients.  Labels are taken as they are: the JAX
-        ``frontends.mask_frontend_labels`` is the identity for every ported
-        config (none has a frontend)."""
+        """(loss, metrics) of ``batch`` {"tokens", "labels"} (B, S) and,
+        where the config has them, "frontend_embeds", with autograd on:
+        ``loss.backward()`` or ``torch.autograd.grad`` gives the
+        parameters' gradients.  The positions the frontend occupies are
+        masked out of the labels.  The loss is the mean CE plus ``0.01 *
+        moe_aux`` for an MoE; the metrics hold the CE (``loss``),
+        ``n_tokens`` and the MoE's ``moe_aux`` and ``moe_dropped``."""
         tokens = torch.as_tensor(batch["tokens"], device=params.device)
-        labels = torch.as_tensor(batch["labels"], device=params.device)
-        x = params.forward_train(tokens, remat=remat, impl=impl)
+        labels = frontends.mask_frontend_labels(
+            cfg, torch.as_tensor(batch["labels"], device=params.device),
+            IGNORE_ID)
+        x, aux = params.forward_train(tokens, batch.get("frontend_embeds"),
+                                      remat=remat, impl=impl)
         loss, n_tok = chunked_cross_entropy(x, params.unembed, labels)
-        return loss, dict(loss=loss, n_tokens=n_tok)
+        metrics = dict(loss=loss, n_tokens=n_tok, **aux)
+        if "moe_aux" in aux:
+            loss = loss + 0.01 * aux["moe_aux"]
+        return loss, metrics
 
     @torch.no_grad()
-    def prefill(params: transformer.Transformer, tokens, *,
-                max_seq: int | None = None):
+    def prefill(params: transformer.Transformer, tokens,
+                frontend_embeds=None, *, max_seq: int | None = None):
         """Last-position logits (B, V) and a fresh cache of ``max_seq``
-        positions holding the prompt."""
+        positions holding the prompt (with the frontend's embeddings in
+        its first positions, when given)."""
         tokens = torch.as_tensor(tokens, device=params.device)
         b, s = tokens.shape
         max_seq = max_seq or s
-        x, entries = params(tokens, capture_cache=True, impl=impl)
+        x, entries = params(tokens, frontend_embeds, capture_cache=True,
+                            impl=impl)
         cache = kvcache.init_cache(cfg, b, max_seq, params.device)
         cache = kvcache.prefill_to_cache(cfg, entries, cache, s)
         logits = params.unembed(x[:, -1:])[:, 0]

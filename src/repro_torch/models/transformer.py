@@ -1,19 +1,22 @@
-"""Decoder stack of the port: global/local attention blocks with a dense
-gated MLP.
+"""Decoder stack of the port over heterogeneous block patterns.
 
-The port of ``repro.models.transformer``.  The JAX package stacks equal
-pattern positions under one ``lax.scan`` over cycles; here the stack is an
-``nn.Module`` with one :class:`DecoderLayer` per layer, run by a plain loop
-(layer ``i`` has kind ``cfg.block_kind(i)``).  Two full-sequence modes share
-the weights: :meth:`Transformer.forward`, the serving forward (no autograd,
-optionally capturing the cache), and :meth:`Transformer.forward_train`, the
-loss path, with the JAX remat policy: each whole cycle of
-``len(block_pattern)`` layers is rematerialised in the backward
-(``torch.utils.checkpoint``), the tail layers that fill no cycle are not.
-Block kinds ``rwkv`` and ``rglru`` and MoE feed-forwards raise
-``NotImplementedError``; they are never skipped.
+The port of ``repro.models.transformer``: each layer is dispatched on its
+``block_kind`` (global/local attention, ``rwkv``, ``rglru``), with a dense
+gated MLP or an MoE feed-forward (``rwkv`` layers carry their own channel
+mix instead).  The JAX package stacks equal pattern positions under one
+``lax.scan`` over cycles; here the stack is an ``nn.Module`` with one
+:class:`DecoderLayer` per layer, run by a plain loop (layer ``i`` has kind
+``cfg.block_kind(i)``).  Two full-sequence modes share the weights:
+:meth:`Transformer.forward`, the serving forward (no autograd, optionally
+capturing the cache), and :meth:`Transformer.forward_train`, the loss
+path, with the JAX remat policy: each whole cycle of ``len(block_pattern)``
+layers is rematerialised in the backward (``torch.utils.checkpoint``), the
+tail layers that fill no cycle are not.  A frontend's embeddings are
+early-fused into the first ``cfg.frontend_tokens`` positions.
 
-Weights keep the JAX ``(d_in, d_out)`` orientation; :func:`params_from_jax`
+Weights keep the JAX ``(d_in, d_out)`` orientation and each leaf's JAX
+dtype (the MoE router, RG-LRU's gate biases and ``log_lambda`` and RWKV's
+decay and bonus leaves are f32 in a bf16 model); :func:`params_from_jax`
 copies a JAX param tree (as numpy arrays) into the stack.
 """
 
@@ -27,12 +30,13 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import NOT_PORTED, ModelConfig
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
-from repro_torch.models import layers
+from repro_torch.models import layers, moe, rglru, rwkv6
 from repro_torch.models.layers import AttnSpec
 
 ATTN_KINDS = ("global", "local")
+BLOCK_KINDS = ATTN_KINDS + ("rwkv", "rglru")
 
 
 def attn_spec(cfg: ModelConfig, kind: str) -> AttnSpec:
@@ -44,65 +48,134 @@ def attn_spec(cfg: ModelConfig, kind: str) -> AttnSpec:
         dtype=layers.torch_dtype(cfg.dtype))
 
 
+def rwkv_spec(cfg: ModelConfig) -> rwkv6.RWKVSpec:
+    return rwkv6.RWKVSpec(d_model=cfg.d_model, n_heads=cfg.n_heads,
+                          d_ff=cfg.d_ff, dtype=layers.torch_dtype(cfg.dtype))
+
+
+def rglru_spec(cfg: ModelConfig) -> rglru.RGLRUSpec:
+    return rglru.RGLRUSpec(d_model=cfg.d_model,
+                           lru_width=cfg.lru_width or cfg.d_model,
+                           conv_width=cfg.conv_width,
+                           dtype=layers.torch_dtype(cfg.dtype))
+
+
+def moe_spec(cfg: ModelConfig) -> moe.MoESpec:
+    return moe.MoESpec(d_model=cfg.d_model, d_ff=cfg.d_ff,
+                       n_experts=cfg.n_experts,
+                       experts_per_token=cfg.experts_per_token,
+                       n_shared_experts=cfg.n_shared_experts, act=cfg.act,
+                       dtype=layers.torch_dtype(cfg.dtype))
+
+
 def n_cycles(cfg: ModelConfig) -> tuple[int, int]:
     p = len(cfg.block_pattern)
     return cfg.n_layers // p, cfg.n_layers % p
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise on a block kind or feed-forward the port does not have."""
-    for kind in dict.fromkeys(cfg.block_kind(i) for i in range(cfg.n_layers)):
-        if kind not in ATTN_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: block kind {kind!r} is not ported; see "
-                f"{NOT_PORTED}")
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE feed-forward is not "
-                                  f"ported; see {NOT_PORTED}")
-    if cfg.frontend:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend "
-                                  f"is not ported; see {NOT_PORTED}")
-
-
-def _pdict(tensors: Mapping[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v) for k, v in tensors.items()})
+def _pdict(tensors: Mapping[str, Any]) -> nn.ParameterDict:
+    """The JAX sub-tree as parameters; a nested mapping (the MoE's shared
+    expert) becomes a nested ``ParameterDict`` of the same key."""
+    return nn.ParameterDict({
+        k: _pdict(v) if isinstance(v, Mapping) else nn.Parameter(v)
+        for k, v in tensors.items()})
 
 
 class DecoderLayer(nn.Module):
-    """One pre-norm decoder layer: attention of ``kind`` then the MLP."""
+    """One pre-norm decoder layer: the block of ``kind`` (``attn``, ``tm``
+    or ``rec``), then the feed-forward (``mlp`` or ``moe``; an ``rwkv``
+    layer's ``tm`` holds its channel mix instead)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, p: Mapping[str, Any]):
         super().__init__()
-        if kind not in ATTN_KINDS:
-            raise NotImplementedError(f"block kind {kind!r} is not ported; "
-                                      f"see {NOT_PORTED}")
+        if kind not in BLOCK_KINDS:
+            raise ValueError(f"unknown block kind {kind!r}; expected one of "
+                             f"{BLOCK_KINDS}")
         self.cfg, self.kind = cfg, kind
-        self.spec = attn_spec(cfg, kind)
         self.norm1 = _pdict(p["norm1"])
-        self.attn = _pdict(p["attn"])
         self.norm2 = _pdict(p["norm2"])
-        self.mlp = _pdict(p["mlp"])
+        if kind in ATTN_KINDS:
+            self.spec = attn_spec(cfg, kind)
+            self.attn = _pdict(p["attn"])
+        elif kind == "rwkv":
+            self.spec = rwkv_spec(cfg)
+            self.tm = _pdict(p["tm"])
+        else:
+            self.spec = rglru_spec(cfg)
+            self.rec = _pdict(p["rec"])
+        if "moe" in p:
+            self.moe = _pdict(p["moe"])
+        elif "mlp" in p:
+            self.mlp = _pdict(p["mlp"])
+
+    def ffn(self, y: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        """The feed-forward of ``y`` and its aux (the MoE's, else {})."""
+        if hasattr(self, "moe"):
+            return moe.moe_apply(self.moe, y, moe_spec(self.cfg))
+        return layers.mlp_apply(self.mlp, y, self.cfg.act), {}
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
                 capture: bool = False, impl: str | None = None):
-        """(x, cache entry): the entry holds the layer's k, v (local: the
-        last ``window`` positions) when ``capture``, else it is empty."""
+        """(x, cache entry, aux).  The entry, when ``capture``, holds the
+        layer's serving state: k, v (local: the last ``window``
+        positions); rwkv's state and token-shift carries; rglru's last h
+        and conv window.  Else it is empty."""
         cfg = self.cfg
-        h = layers.norm_apply(self.norm1, x, cfg.norm)
-        q, k, v = layers.qkv(self.attn, self.spec, h, positions)
-        o = layers.blockwise_attention(q, k, v, spec=self.spec, q_offset=0,
-                                       impl=impl)
-        x = x + (o.reshape(*o.shape[:2], -1) @ self.attn["wo"])
         entry: dict[str, torch.Tensor] = {}
-        if capture:
-            if self.kind == "local":
-                w = min(cfg.window, k.shape[1])
-                entry = {"k": k[:, -w:], "v": v[:, -w:]}
+        aux: dict[str, torch.Tensor] = {}
+        h = layers.norm_apply(self.norm1, x, cfg.norm)
+        if self.kind in ATTN_KINDS:
+            q, k, v = layers.qkv(self.attn, self.spec, h, positions)
+            o = layers.blockwise_attention(q, k, v, spec=self.spec,
+                                           q_offset=0, impl=impl)
+            x = x + (o.reshape(*o.shape[:2], -1) @ self.attn["wo"])
+            if capture:
+                if self.kind == "local":
+                    w = min(cfg.window, k.shape[1])
+                    entry = {"k": k[:, -w:], "v": v[:, -w:]}
+                else:
+                    entry = {"k": k, "v": v}
+        elif self.kind == "rwkv":
+            if capture:
+                o, state, x_last = rwkv6.time_mix(self.tm, self.spec, h,
+                                                  return_state=True)
             else:
-                entry = {"k": k, "v": v}
+                o = rwkv6.time_mix(self.tm, self.spec, h)
+            x = x + o
+            y = layers.norm_apply(self.norm2, x, cfg.norm)
+            if capture:
+                entry = {"state": state, "tm_prev": x_last,
+                         "cm_prev": y[:, -1]}
+            return x + rwkv6.channel_mix(self.tm, self.spec, y), entry, aux
+        else:
+            if capture:
+                o, h_last, conv = rglru.rglru_apply(self.rec, self.spec, h,
+                                                    return_state=True)
+                entry = {"h": h_last, "conv": conv}
+            else:
+                o = rglru.rglru_apply(self.rec, self.spec, h)
+            x = x + o
         y = layers.norm_apply(self.norm2, x, cfg.norm)
-        x = x + layers.mlp_apply(self.mlp, y, cfg.act)
-        return x, entry
+        f, aux = self.ffn(y)
+        return x + f, entry, aux
+
+
+def _mean_aux(cfg: ModelConfig, per_layer: list[dict]) -> dict:
+    """The JAX package's aux reduction: for each pattern position the mean
+    over the scanned cycles, then one entry for each tail layer, then the
+    mean of that list."""
+    pat = len(cfg.block_pattern)
+    nc, _ = n_cycles(cfg)
+    auxes = []
+    for j in range(pat if nc else 0):
+        group = per_layer[j:nc * pat:pat]
+        if group[0]:
+            auxes.append({k: torch.stack([a[k] for a in group]).mean()
+                          for k in group[0]})
+    auxes += [a for a in per_layer[nc * pat:] if a]
+    if not auxes:
+        return {}
+    return {k: torch.stack([a[k] for a in auxes]).mean() for k in auxes[0]}
 
 
 class Transformer(nn.Module):
@@ -114,7 +187,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, p: Mapping[str, Any]):
         super().__init__()
-        check_ported(cfg)
         self.cfg = cfg
         self.embed = nn.Parameter(p["embed"])
         self.final_norm = _pdict(p["final_norm"])
@@ -128,62 +200,85 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+    def embed_tokens(self, tokens: torch.Tensor,
+                     frontend_embeds: torch.Tensor | None = None
+                     ) -> torch.Tensor:
+        """Token embeddings (plus sinusoidal positions), the frontend's
+        embeddings in the first ``cfg.frontend_tokens`` positions when
+        given (ignored for a config without frontend tokens)."""
         # F.embedding: its backward adds the rows' gradients without
         # atomics (an index's adds in a fixed order), so steps repeat bitwise
         x = F.embedding(tokens.long(), self.embed)
         if self.cfg.pos == "sinusoidal":
             pos = torch.arange(tokens.shape[1], device=tokens.device)
             x = x + layers.sinusoidal(pos, self.cfg.d_model)[None].to(x.dtype)
+        n = self.cfg.frontend_tokens
+        if frontend_embeds is not None and n:
+            if tokens.shape[1] < n:
+                raise ValueError(f"{self.cfg.name}: {tokens.shape[1]} tokens "
+                                 f"cannot hold the {n} frontend positions")
+            x = torch.cat([frontend_embeds[:, :n].to(x.dtype), x[:, n:]], 1)
         return x
 
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor, *, capture_cache: bool = False,
-                impl: str | None = None):
+    def forward(self, tokens: torch.Tensor,
+                frontend_embeds: torch.Tensor | None = None, *,
+                capture_cache: bool = False, impl: str | None = None):
         """Full-sequence forward of ``tokens`` (B, S).  Returns (hidden
         after the final norm, per-layer cache entries in layer order, empty
         unless ``capture_cache``)."""
-        x = self.embed_tokens(tokens)
+        x = self.embed_tokens(tokens, frontend_embeds)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         entries = []
         for layer in self.layers:
-            x, e = layer(x, positions, capture=capture_cache, impl=impl)
+            x, e, _ = layer(x, positions, capture=capture_cache, impl=impl)
             if capture_cache:
                 entries.append(e)
         x = layers.norm_apply(self.final_norm, x, self.cfg.norm)
         return x, entries
 
     def _cycle(self, x: torch.Tensor, positions: torch.Tensor, first: int,
-               impl: str | None) -> torch.Tensor:
+               impl: str | None) -> tuple[torch.Tensor, list[dict]]:
+        auxes = []
         for layer in self.layers[first:first + len(self.cfg.block_pattern)]:
-            x, _ = layer(x, positions, impl=impl)
-        return x
+            x, _, a = layer(x, positions, impl=impl)
+            auxes.append(a)
+        return x, auxes
 
-    def forward_train(self, tokens: torch.Tensor, *, remat: bool = True,
-                      impl: str | None = None) -> torch.Tensor:
+    def forward_train(self, tokens: torch.Tensor,
+                      frontend_embeds: torch.Tensor | None = None, *,
+                      remat: bool = True, impl: str | None = None
+                      ) -> tuple[torch.Tensor, dict]:
         """Full-sequence forward of ``tokens`` (B, S) for the loss: the
-        hidden state after the final norm, recorded by autograd.
+        hidden state after the final norm, recorded by autograd, and the
+        aux (the MoE's ``moe_aux`` and ``moe_dropped``, reduced as the JAX
+        package reduces them; else {}).
 
         ``remat`` is the JAX ``remat``: each of the ``n_cycles`` whole
         cycles is one ``torch.utils.checkpoint`` (non-reentrant), so the
-        backward recomputes it from its input and keeps none of its
+        backward recomputes it from its input, the MoE's routing included
+        (the same input routes the same way), and keeps none of its
         activations; the tail layers keep theirs.  The attention forward
         then runs twice for every layer of a cycle and once for a tail
         layer.
         """
-        x = self.embed_tokens(tokens)
+        x = self.embed_tokens(tokens, frontend_embeds)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         pat = len(self.cfg.block_pattern)
         nc, _ = n_cycles(self.cfg)
+        per_layer: list[dict] = []
         for c in range(nc):
             if remat:
-                x = checkpoint(self._cycle, x, positions, c * pat, impl,
-                               use_reentrant=False)
+                x, auxes = checkpoint(self._cycle, x, positions, c * pat,
+                                      impl, use_reentrant=False)
             else:
-                x = self._cycle(x, positions, c * pat, impl)
+                x, auxes = self._cycle(x, positions, c * pat, impl)
+            per_layer += auxes
         for layer in self.layers[nc * pat:]:
-            x, _ = layer(x, positions, impl=impl)
-        return layers.norm_apply(self.final_norm, x, self.cfg.norm)
+            x, _, a = layer(x, positions, impl=impl)
+            per_layer.append(a)
+        x = layers.norm_apply(self.final_norm, x, self.cfg.norm)
+        return x, _mean_aux(self.cfg, per_layer)
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         w = self.embed.T if self.cfg.tie_embeddings else self.lm_head
@@ -201,18 +296,33 @@ class Transformer(nn.Module):
 
 def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
     dt = layers.torch_dtype(cfg.dtype)
-    return {"norm1": layers.norm_init(cfg.d_model, cfg.norm, dt, gen.device),
-            "norm2": layers.norm_init(cfg.d_model, cfg.norm, dt, gen.device),
-            "attn": layers.attn_init(gen, attn_spec(cfg, kind)),
-            "mlp": layers.mlp_init(gen, cfg.d_model, cfg.d_ff, dt)}
+    lp = {"norm1": layers.norm_init(cfg.d_model, cfg.norm, dt, gen.device),
+          "norm2": layers.norm_init(cfg.d_model, cfg.norm, dt, gen.device)}
+    if kind in ATTN_KINDS:
+        lp["attn"] = layers.attn_init(gen, attn_spec(cfg, kind))
+    elif kind == "rwkv":
+        lp["tm"] = rwkv6.rwkv_init(gen, rwkv_spec(cfg))
+    elif kind == "rglru":
+        lp["rec"] = rglru.rglru_init(gen, rglru_spec(cfg))
+    else:
+        raise ValueError(f"unknown block kind {kind!r}; expected one of "
+                         f"{BLOCK_KINDS}")
+    if kind != "rwkv":                        # rwkv carries its channel mix
+        if cfg.is_moe:
+            lp["moe"] = moe.moe_init(gen, moe_spec(cfg))
+        else:
+            lp["mlp"] = layers.mlp_init(gen, cfg.d_model, cfg.d_ff, dt)
+    return lp
 
 
 def init(gen: torch.Generator, cfg: ModelConfig) -> Transformer:
     """Random weights on the generator's device, drawn in this order: the
-    embedding, the unembedding, then per layer wq, wk, wv, wo, w_gate,
-    w_up, w_down.  The stream is not ``jax.random``'s: weights that must
-    equal the JAX model's come through :func:`params_from_jax`."""
-    check_ported(cfg)
+    embedding, the unembedding, then per layer the block's weights (wq,
+    wk, wv, wo; or ``rwkv6.rwkv_init``'s; or ``rglru.rglru_init``'s) and
+    the feed-forward's (w_gate, w_up, w_down; or ``moe.moe_init``'s).  The
+    leaves the JAX init keeps in f32 are f32 here too.  The stream is not
+    ``jax.random``'s: weights that must equal the JAX model's come through
+    :func:`params_from_jax`."""
     dt = layers.torch_dtype(cfg.dtype)
     p: dict[str, Any] = {
         "embed": layers.embed_init(gen, cfg.vocab_size, cfg.d_model, dt),
@@ -233,15 +343,17 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,
     (bf16 leaves may be ml_dtypes arrays): ``embed``, ``final_norm``,
     ``lm_head`` (untied), ``scan`` (a tuple over pattern positions, each
     leaf with a leading ``n_cycles`` axis) and ``tail``.  Layer
-    ``c * P + j`` takes ``scan[j][c]``, then come the tail's layers.
+    ``c * P + j`` takes ``scan[j][c]``, then come the tail's layers.  A
+    float32 leaf stays float32; every other leaf takes ``cfg.dtype``.
     ``device=None`` means the card.
     """
-    check_ported(cfg)
     dev = resolve_device(device)
     dt = layers.torch_dtype(cfg.dtype)
 
     def conv(a):
-        return torch.from_numpy(np.array(a, np.float32)).to(dev, dt)
+        a = np.asarray(a)
+        to = torch.float32 if a.dtype == np.float32 else dt
+        return torch.from_numpy(np.array(a, np.float32)).to(dev, to)
 
     def conv_tree(t, index=None):
         if isinstance(t, Mapping):

@@ -16,7 +16,8 @@ before P . V; one bf16 rounding step of outputs near 1).  Its log-sum-exp
 atol 1e-4, the output unchanged bit for bit when it is written.  The
 backward (bf16: the tensor-core kernels, f32: the scalar ones): f32 atol
 2e-4, bf16 within 1% of the largest plain gradient, and repeatable bit for
-bit.
+bit.  The same tolerances hold the kernels at the attention layers of
+every ported architecture (GQA groups 1-7 and 10, MHA).
 """
 
 import dataclasses
@@ -743,3 +744,58 @@ def test_train_steps_launch_the_kernels_and_repeat_bitwise(dev):
                   seq_len=128, log_every=100)
     assert out["history"] == again["history"]
     assert all(np.isfinite(out["history"]))
+
+
+# The attention layers of the other LM architectures, at small S: GQA
+# groups of 4, 5 and 7 query heads at D 128 (phi35_moe, llama4_scout,
+# llava_next_34b), 10 over one KV head at D 256 with recurrentgemma_2b's
+# window of 2,048 (and a window of 100, so that S = 300 is cut by it) and
+# MHA at D 64 (musicgen_medium); (H, KV, D, window).
+ARCH_GROUPS = {"phi35_moe": (32, 8, 128, 0), "llama4_scout": (40, 8, 128, 0),
+               "llava_next_34b": (56, 8, 128, 0),
+               "recurrentgemma_2b": (10, 1, 256, 2048),
+               "recurrentgemma_2b_w100": (10, 1, 256, 100),
+               "musicgen_medium": (24, 24, 64, 0)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("s", [63, 300, 2100])
+@pytest.mark.parametrize("arch", sorted(ARCH_GROUPS))
+def test_flash_forward_at_the_arch_groups(dev, arch, s, dtype):
+    from repro_torch.kernels import flash_attention, ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h, kv, d, window = ARCH_GROUPS[arch]
+    q, k, v = _flash_inputs(dev, 1, s, h, kv, d, dtype, s + h)
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    before = dict(flash_attention.LAUNCHES_BY_DTYPE)
+    got = flash_attention.flash_attention(q, k, v, window=window)
+    want = ref.flash_attention_ref(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES_BY_DTYPE == {
+        n: c + (n == name) for n, c in before.items()}
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_TOL[name], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("s", [63, 300, 2100])
+@pytest.mark.parametrize("arch", sorted(ARCH_GROUPS))
+def test_flash_backward_at_the_arch_groups(dev, arch, s, dtype):
+    from repro_torch.kernels import flash_attention, ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h, kv, d, window = ARCH_GROUPS[arch]
+    qs, k, v, do = _bwd_inputs(dev, 1, s, h, kv, d, dtype, s + h)
+    o, lse = flash_attention.flash_attention_fwd(qs, k, v, window=window,
+                                                 with_lse=True)
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    before = dict(flash_attention.LAUNCHES_BWD_BY_DTYPE)
+    got = flash_attention.flash_attention_bwd(qs, k, v, o, do, lse,
+                                              window=window)
+    want = ref.flash_attention_bwd_ref(qs, k, v, o, do, lse, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES_BWD_BY_DTYPE == {
+        n: c + (n == name) for n, c in before.items()}
+    _bwd_close(got, want, dtype)

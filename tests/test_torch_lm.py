@@ -185,19 +185,21 @@ def test_decode_drops_rows_past_the_cache():
 
 
 def test_unported_arch_and_block_kinds_raise():
-    with pytest.raises(ValueError, match="not ported"):
-        tbase.get_config("rwkv6_3b")
+    """Every JAX architecture resolves to the JAX package's config; an
+    unknown name and an unknown block kind raise."""
+    assert tbase.ARCH_IDS + tbase.TREE_ARCH_IDS == jbase.ARCH_IDS
+    for arch in jbase.ARCH_IDS:
+        assert dataclasses.asdict(tbase.get_config(arch)) == \
+            dataclasses.asdict(jbase.get_config(arch))
     with pytest.raises(ValueError, match="not an architecture"):
         tbase.get_config("gpt5")
-    base = tbase.reduced(tbase.get_config("yi_6b"))
-    for over in (dict(block_pattern=("rwkv",)),
-                 dict(block_pattern=("global", "rglru")),
-                 dict(n_experts=4, experts_per_token=2)):
-        cfg = dataclasses.replace(base, **over)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmodel.build_model(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            kvcache.init_cache(cfg, 1, 8, device="cpu")
+    cfg = dataclasses.replace(tbase.reduced(tbase.get_config("yi_6b")),
+                              block_pattern=("global", "mamba"))
+    model = tmodel.build_model(cfg)
+    with pytest.raises(ValueError, match="unknown block kind 'mamba'"):
+        model.init(torch.Generator("cpu").manual_seed(0))
+    with pytest.raises(ValueError, match="unknown block kind 'mamba'"):
+        kvcache.init_cache(cfg, 1, 8, device="cpu")
 
 
 def test_attention_impl_is_pinned_or_rejected():

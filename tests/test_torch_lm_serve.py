@@ -3,13 +3,16 @@
 The scenarios of ``tests/test_serve.py``, ``tests/test_engine_policies.py``
 and ``tests/test_engine_failover.py``, each written once and run on both
 packages: one reduced yi_6b in f32 (the JAX ``init`` weights carried into
-the port by ``params_from_jax``) for the model-backed ones, a model-free
+the port by ``params_from_jax``) for the model-backed ones (five of them
+also on reduced phi35_moe, recurrentgemma_2b and rwkv6_3b), a model-free
 ``FakeReplica`` for the policy ones.  Completions must equal the JAX
 engine's token for token (greedy decoding over f32 logits that agree to
 about 1e-5, far inside the gaps between the top logits), and ``stats()``,
 failure records, metric snapshots and trace events (without their clock)
 must be equal.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -55,10 +58,12 @@ class Side:
         return self.engine.ServingEngine(replicas, **kw)
 
 
-@pytest.fixture(scope="module")
-def sides():
-    cj = jbase.reduced(jbase.get_config("yi_6b"), dtype="float32")
-    ct = tbase.reduced(tbase.get_config("yi_6b"), dtype="float32")
+@functools.lru_cache(maxsize=None)
+def arch_sides(arch):
+    """Both packages' serving classes around the shared weights of reduced
+    ``arch`` in f32."""
+    cj = jbase.reduced(jbase.get_config(arch), dtype="float32")
+    ct = tbase.reduced(tbase.get_config(arch), dtype="float32")
     mj = jmodel.build_model(cj)
     pj = mj.init(jax.random.key(0))
     mt = tmodel.build_model(ct)
@@ -71,6 +76,11 @@ def sides():
              telastic.HeartbeatMonitor, tmetrics.Registry, ttrace.Tracer,
              lambda **kw: tengine.Replica(mt, pt, device="cpu", **kw),
              ct.vocab_size))
+
+
+@pytest.fixture(scope="module")
+def sides():
+    return arch_sides("yi_6b")
 
 
 def _record(eng, *, metrics=None, tracer=None) -> dict:
@@ -231,10 +241,22 @@ MODEL_SCENARIOS = [sc_manual_greedy, sc_mixed_lengths, sc_isolated_slots,
                    sc_max_ticks, sc_heartbeat, sc_temperature_is_ignored]
 
 
-@pytest.mark.parametrize("scenario", MODEL_SCENARIOS,
-                         ids=lambda f: f.__name__[3:])
-def test_engine_equals_jax_engine(sides, scenario):
-    jside, tside = sides
+# every scenario on the dense yi_6b; on an MoE, the RG-LRU hybrid and
+# RWKV-6 the ones whose slots hold caches of several prompts at once,
+# across ticks, replicas and a failover (the rest test the engine's
+# bookkeeping, which does not depend on the model)
+ARCH_SCENARIOS = [sc_manual_greedy, sc_mixed_lengths, sc_isolated_slots,
+                  sc_ws_two_replicas, sc_killed_mid_run]
+ENGINE_CASES = [pytest.param("yi_6b", sc, id=sc.__name__[3:])
+                for sc in MODEL_SCENARIOS] + [
+    pytest.param(arch, sc, id=f"{arch}-{sc.__name__[3:]}")
+    for arch in ("phi35_moe", "recurrentgemma_2b", "rwkv6_3b")
+    for sc in ARCH_SCENARIOS]
+
+
+@pytest.mark.parametrize("arch,scenario", ENGINE_CASES)
+def test_engine_equals_jax_engine(arch, scenario):
+    jside, tside = arch_sides(arch)
     want = scenario(jside)
     got = scenario(tside)
     assert got == want

@@ -532,8 +532,8 @@ def test_train_resume_equals_a_straight_run(tmp_path):
 
 def test_launcher_refuses_unported_arch_and_missing_card():
     from repro_torch.launch.train import train
-    with pytest.raises(ValueError, match="not ported"):
-        train("rwkv6_3b", device="cpu")
+    with pytest.raises(ValueError, match="not an architecture"):
+        train("gpt5", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             train("gemma3_4b", steps=1)
