@@ -160,8 +160,24 @@ Phases (each one that fails ends the run with a non-zero exit):
      embedding, layer 0 and (MoE) the last layer's experts' w_down.
      Prints TTFT, decode tokens/s, engine tok/s and peak memory, and
      {"archs": {...}}.
+ 13. the dry run (repro_torch.launch.dryrun), after 12 has freed the card:
+     (a) all 35 cells of dryrun.cells_to_run() counted on meta tensors
+     (--mesh 1) in worker processes, each ok, does_not_fit or needs_device
+     (yadt: needs_device at splitPre's nonzero), every LM cell's
+     useful_flops_ratio above 0 (and at most 1 for a train cell: a serving
+     step gathers its embedding rows and a prefill unembeds its last
+     position only, below the 2N a token of the model flops); (b) meanwhile
+     on the card, at one card's batch: yadt/train_4k (the root superstep
+     over 10,000,384 QUEST function-5 cases), gemma2_9b/prefill_32k (1 of
+     32), yi_6b/decode_32k (16 of 128), gemma3_4b/long_500k and
+     gemma3_4b/train_4k (2 of 256): each ok with its peak at most 80 GB and
+     its outputs finite, its flops (LM cells) equal to the meta count at
+     the same batch, the histogram and split gain launched once a
+     superstep, the flash forward once a layer in the prefill and the
+     backward once a layer in a training step.  Prints each cell's step,
+     bound, roofline_share and peak beside the card, and {"dryrun": {...}}.
 
-Before the kernels' JSON record come {"archs": {...}}, {"farm_model": {...}}, {"train":
+Before the kernels' JSON record come {"dryrun": {...}}, {"archs": {...}}, {"farm_model": {...}}, {"train":
 {...}} and {"ensemble": {...}} (trees/s, the OOB score, coverage and time
 split, the chaos phase's failures and wall times); the last line is {"ok":
 true, "device": {...}}.  It imports
@@ -209,13 +225,9 @@ SERVE_REQUESTS = 65_536
 SERVE_REPLICAS = 4
 SERVE_MAX_BATCH = 1024
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): memory, and the
-# CUDA cores' f32 rate, used for every scalar operation outside the tensor
-# cores.
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-# and the tensor cores' dense bf16 rate, the flash kernel's operations bound
-BF16_TENSOR_OPS_PER_S = 989e12
+# The H100's peaks and the kernels' bound formulas are
+# repro_torch.launch.roofline's (imported where used: this file must start
+# without the repo).
 
 # Phase 7: the JAX package's FLASH_CASES (tests/test_kernels.py:113-121),
 # (B, S, H, KV, D, window, softcap, dtype), then gemma2's and yi's head dims
@@ -355,6 +367,21 @@ ARCHS_LOSS_ATOL = TRAIN_LOSS_ATOL
 ARCHS_GNORM_REL = TRAIN_GNORM_REL
 ARCHS_GRAD_REL_L2 = TRAIN_GRAD_REL_L2
 
+# Phase 13: the dry run (repro_torch.launch.dryrun).  (a) every cell of
+# dryrun.cells_to_run() on meta tensors (--mesh 1), in DRYRUN_JOBS worker
+# processes while (b) runs; (b) these cells on the card at one card's
+# batch, (arch, shape, batch; None: the shape's own): the root superstep of
+# the 10,000,384-case yadt cell, a 32,768-token prefill, a decode step
+# against 16 x 32,768 positions, one against 524,288, and phase 11's step.
+DRYRUN_JOBS = 6
+DRYRUN_CARD_CELLS = (("yadt", "train_4k", None),
+                     ("gemma2_9b", "prefill_32k", 1),
+                     ("yi_6b", "decode_32k", 16),
+                     ("gemma3_4b", "long_500k", 1),
+                     ("gemma3_4b", "train_4k", 2))
+# a card cell runs its step 1 + TIMED_STEPS times, then once counted
+DRYRUN_RUNS = 5
+
 # Phase 9: the c45 oracle and the farm under chaos on census_pums, cut to
 # CHAOS_SCALE of its 299,285 cases (29,928): on the full set the oracle
 # alone takes longer than the 90 s this phase gives it, and the farm build
@@ -439,11 +466,12 @@ def kernel_ms(fn, key: str, reps: int) -> float:
                ) / 1e3 / reps
 
 
-def bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S
+def bound(n_bytes: float, n_ops: float, ops_per_s: float | None = None
           ) -> tuple[float, str]:
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """(ms, "bytes" or "operations"): roofline.bound_ms, at the f32 rate
+    unless ``ops_per_s`` is given."""
+    from repro_torch.launch import roofline as rl
+    return rl.bound_ms(n_bytes, n_ops, ops_per_s or rl.FP32_OPS_PER_S)
 
 
 # --------------------------------------------------------------------------
@@ -472,6 +500,7 @@ def check_histogram(ds_x, ds_y, ds_w, n_bins, n_classes, k, gen, dev):
     Returns (record, inputs for the split-gain check)."""
     import torch
     from repro_torch.kernels import autotune, compaction, histogram, ref
+    from repro_torch.launch import roofline as rl
     kw = dict(n_slots=k, n_bins=n_bins, n_classes=n_classes)
     n, a_dim = ds_x.shape
 
@@ -551,9 +580,10 @@ def check_histogram(ds_x, ds_y, ds_w, n_bins, n_classes, k, gen, dev):
                          "frontier_histogram_kernel", reps=10)
         # the kernel's own work: each case row (A bins, label, weight,
         # slot) read once, each non-zero cell written once
-        r_bound, r_by = bound(x.shape[0] * (4 * x.shape[1] + 12)
-                              + int(torch.count_nonzero(got)) * 4,
-                              x.shape[0] * x.shape[1])
+        r_bound, r_by = bound(
+            rl.histogram_bytes(x.shape[0], x.shape[1],
+                               int(torch.count_nonzero(got))),
+            rl.histogram_ops(x.shape[0], x.shape[1]))
         timed.append(dict(regime=name, N=x.shape[0], A=x.shape[1], K=rk,
                           plan=plan.mode,
                           ms=r_ms, bound_ms=r_bound, bound_by=r_by))
@@ -573,8 +603,9 @@ def check_histogram(ds_x, ds_y, ds_w, n_bins, n_classes, k, gen, dev):
                           device=dev)
     library_ms = cuda_ms(lambda: lib_out.index_add_(0, flat, w_flat), reps=3)
     del flat, w_flat, lib_out
-    out_bytes = k * a_dim * (n_bins + 1) * n_classes * 4
-    bound_ms, bound_by = bound(n * (4 * a_dim + 12) + out_bytes, n * a_dim)
+    bound_ms, bound_by = bound(
+        rl.histogram_bytes(n, a_dim, k * a_dim * (n_bins + 1) * n_classes),
+        rl.histogram_ops(n, a_dim))
     print(f"histogram: root N={n} {ms:.4f} ms with the zero fill (plain "
           f"{plain_ms:.4f}, index_add_ {library_ms:.4f}, bound {bound_ms:.4f}"
           f" by {bound_by})")
@@ -610,6 +641,7 @@ def _gain_case(hist, tw, cont, nb, min_objs, criterion):
 def check_split_gain(sub_hist, cont, nb, n_bins, gen, dev):
     import torch
     from repro_torch.kernels import ref
+    from repro_torch.launch import roofline as rl
     from repro_torch.kernels import split_gain as sg
     hist = sub_hist[:, :, :n_bins, :]        # the build's strided view
     tw = sub_hist[:, 0].sum((1, 2))          # node weight incl. unknowns
@@ -638,9 +670,8 @@ def check_split_gain(sub_hist, cont, nb, n_bins, gen, dev):
     call_ms = cuda_ms(lambda: sg.split_gain(hist, tw, cont, nb), reps=50)
     plain_ms = cuda_ms(lambda: ref.split_gain_ref(hist, tw, cont, nb),
                        reps=10)
-    n_ops = k * a_dim * n_bins * (6 * c + 20)
-    bound_ms, bound_by = bound(
-        k * a_dim * n_bins * c * 4 + k * 4 + a_dim * 5 + k * a_dim * 8, n_ops)
+    bound_ms, bound_by = bound(rl.split_gain_bytes(k, a_dim, n_bins, c),
+                               rl.split_gain_ops(k, a_dim, n_bins, c))
     print(f"split_gain: K={k} A={a_dim} B={n_bins} C={c} {ms:.4f} ms of "
           f"device time (profiler; {call_ms:.4f} ms a call back to back, "
           f"CUDA events), plain {plain_ms:.4f}, bound {bound_ms:.6f} by "
@@ -1162,19 +1193,13 @@ def _flash_inputs(case, gen, dev):
             for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d))]
 
 
-def _live_pairs(s: int, window: int) -> int:
-    """(q, k) pairs inside the causal window: sum over q of min(q+1, w)."""
-    if window <= 0 or window >= s:
-        return s * (s + 1) // 2
-    return window * (window + 1) // 2 + (s - window) * window
-
-
 def _flash_bound(case) -> tuple[float, str]:
+    from repro_torch.launch import roofline as rl
     b, s, h, kv, d, window, _, dtype = case
     size = 2 if dtype == "bfloat16" else 4
-    n_bytes = (2 * b * s * h * d + 2 * b * s * kv * d) * size
-    return bound(n_bytes, 4 * b * h * d * _live_pairs(s, window),
-                 BF16_TENSOR_OPS_PER_S)
+    return bound(rl.flash_fwd_bytes(b, s, h, kv, d, size),
+                 rl.flash_fwd_flops(b, s, h, d, window),
+                 rl.BF16_TENSOR_OPS_PER_S)
 
 
 def _flash_case(case, gen, dev) -> float:
@@ -1311,11 +1336,12 @@ def _bwd_case(case, dtype, gen, dev) -> tuple[float, float]:
 def _bwd_bound(case, dtype) -> tuple[float, str]:
     """q, k, v, o, dO and the LSE read once, dq, dk, dv written once;
     10 * D flops a live (q, k) pair and head (S, dP, dV, dK, dQ)."""
+    from repro_torch.launch import roofline as rl
     b, s, h, kv, d, window, _ = case
     size = 2 if dtype == "bfloat16" else 4
-    n_bytes = (4 * b * s * h * d + 4 * b * s * kv * d) * size + b * h * s * 4
-    return bound(n_bytes, 10 * b * h * d * _live_pairs(s, window),
-                 BF16_TENSOR_OPS_PER_S)
+    return bound(rl.flash_bwd_bytes(b, s, h, kv, d, size),
+                 rl.flash_bwd_flops(b, s, h, d, window),
+                 rl.BF16_TENSOR_OPS_PER_S)
 
 
 def _bwd_design(gen, dev) -> dict:
@@ -2032,6 +2058,125 @@ def serve_archs(dev, card: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 13: the dry run, every cell counted and five run on the card
+# --------------------------------------------------------------------------
+
+def _meta_cell(job):
+    """One meta dry-run cell (a worker process's job)."""
+    from repro_torch.launch import dryrun
+    arch, shape, batch = job
+    return dryrun.run_cell(arch, shape, batch=batch, verbose=False)
+
+
+def _check_meta(results: dict) -> dict:
+    """Phase 13 (a)'s gates; returns the counts by status."""
+    from repro_torch.configs import base
+    by: dict[str, list] = {}
+    for key, r in results.items():
+        by.setdefault(r["status"], []).append(key)
+        check(r["status"] in ("ok", "does_not_fit", "needs_device"),
+              f"dry run {key}: {r['status']} ({r.get('error')})")
+        arch, shape = key.split("/")
+        if arch == "yadt":
+            check(r["status"] == "needs_device" and r["op"] == "aten::nonzero",
+                  f"dry run {key} on meta: expected to need the device at "
+                  f"splitPre's nonzero, got {r}")
+            continue
+        ratio = r["useful_flops_ratio"]
+        # Above 1 where the step multiplies fewer weights than 2N a token:
+        # a serving step gathers its embedding rows, and a prefill
+        # unembeds its last position only.
+        check(0 < ratio < float("inf") and (
+            ratio <= 1 or base.SHAPES[shape].kind != "train"),
+              f"dry run {key}: useful_flops_ratio {ratio}")
+    return {k: len(v) for k, v in by.items()}
+
+
+def dryrun_cells(card: str) -> dict:
+    """Phase 13: (a) every cell counted on meta tensors, in worker
+    processes, while (b) the card cells run; their gates."""
+    import concurrent.futures
+    import multiprocessing
+
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.kernels import flash_attention, histogram, split_gain
+    from repro_torch.launch import dryrun
+
+    jobs = [(a, s, None) for a, s in dryrun.cells_to_run()]
+    jobs += [c for c in DRYRUN_CARD_CELLS if c[0] != "yadt"]
+    cost = {"train": 0, "prefill": 1, "decode": 2}
+    jobs.sort(key=lambda j: (j[0] != "rwkv6_3b",
+                             cost[base.SHAPES[j[1]].kind]))
+    pool = concurrent.futures.ProcessPoolExecutor(
+        DRYRUN_JOBS, mp_context=multiprocessing.get_context("spawn"))
+    with pool:
+        futures = {job: pool.submit(_meta_cell, job) for job in jobs}
+        on_card = {}
+        for arch, shape, batch in DRYRUN_CARD_CELLS:
+            key = f"{arch}/{shape}"
+            flash_attention.reset_launches()
+            histogram.LAUNCHES = split_gain.LAUNCHES = 0
+            r = dryrun.run_cell(arch, shape, device="cuda", batch=batch,
+                                verbose=False)
+            r["launches"] = dict(
+                frontier_histogram=histogram.LAUNCHES,
+                split_gain=split_gain.LAUNCHES,
+                flash_attention=flash_attention.LAUNCHES_BY_DTYPE["bfloat16"],
+                flash_attention_bwd=(
+                    flash_attention.LAUNCHES_BWD_BY_DTYPE["bfloat16"]))
+            torch.cuda.empty_cache()
+            on_card[key] = r
+            print(f"dry run {key} on {card}: batch {r['batch']} of "
+                  f"{r['global_batch']}, step {r['step_ms']:.3f} ms (each "
+                  f"{', '.join(f'{t:.3f}' for t in r['step_ms_each'])}), "
+                  f"bound {r['bound_s'] * 1e3:.3f} ms by {r['bound_by']}, "
+                  f"roofline_share {r['roofline_share']:.4f}, peak "
+                  f"{r['peak_mem_gb']:.3f} GB, {r['device_flops']:.4e} "
+                  f"flops, {r['device_bytes']:.4e} bytes (min "
+                  f"{r['min_bytes']:.4e}), launches {r['launches']}")
+        results = {job: f.result() for job, f in futures.items()}
+    meta = {f"{a}/{s}": r for (a, s, b), r in results.items() if b is None}
+    statuses = _check_meta(meta)
+    print(f"dry run on meta, {len(meta)} cells: {statuses}")
+    for key, r in on_card.items():
+        arch, shape = key.split("/")
+        check(r["status"] == "ok" and r["peak_mem_gb"] <= 80.0,
+              f"dry run {key} on the card: {r['status']}, peak "
+              f"{r.get('peak_mem_gb')} GB")
+        if arch != "yadt":
+            want = results[(arch, shape, r["batch"])]
+            r["meta_device_flops"] = want["device_flops"]
+            check(r["device_flops"] == want["device_flops"],
+                  f"dry run {key}: {r['device_flops']} flops on the card, "
+                  f"{want['device_flops']} on meta at batch {r['batch']}")
+        n = r["launches"]
+        if arch == "yadt":
+            check(n["frontier_histogram"] == n["split_gain"] == DRYRUN_RUNS,
+                  f"dry run {key}: launches {n}, expected {DRYRUN_RUNS} "
+                  f"histograms and split gains (one a superstep)")
+        elif shape == "prefill_32k":
+            layers = base.get_config(arch).n_layers
+            check(n["flash_attention"] == layers * DRYRUN_RUNS,
+                  f"dry run {key}: {n['flash_attention']} forward launches,"
+                  f" expected one a layer: {layers * DRYRUN_RUNS}")
+        elif shape == "train_4k":
+            layers = base.get_config(arch).n_layers
+            check(n["flash_attention_bwd"] == layers * DRYRUN_RUNS,
+                  f"dry run {key}: {n['flash_attention_bwd']} backward "
+                  f"launches, expected one a layer: {layers * DRYRUN_RUNS}")
+            check(r["grad_accum"] == 1, f"dry run {key}: grad_accum "
+                  f"{r['grad_accum']} at batch {r['batch']}")
+        check(r["outputs_finite"], f"dry run {key}: a non-finite output")
+    keep = ("status", "mem_args_gb", "device_flops", "device_bytes",
+            "min_bytes", "bound_s", "bound_by", "useful_flops_ratio", "op",
+            "where", "t_analysis_s")
+    return dict(card=card, meta_statuses=statuses,
+                meta={k: {f: r.get(f) for f in keep} for k, r in meta.items()},
+                on_card=on_card)
+
+
+# --------------------------------------------------------------------------
 # phase 9: the c45 oracle and the farm under chaos
 # --------------------------------------------------------------------------
 
@@ -2369,6 +2514,19 @@ def main() -> int:
         train=bwd_rec["launches"],
         archs_grad=sum(g["flash_bwd_launches"] for g in grads))
     print(json.dumps({"archs": archs}))
+
+    # ---- 13. the dry run: every cell counted, five run on the card
+    t0 = time.perf_counter()
+    dry = dryrun_cells(card)
+    times["dryrun_s"] = time.perf_counter() - t0
+    dry_launches = {k: sum(r["launches"][k] for r in dry["on_card"].values())
+                    for k in ("frontier_histogram", "split_gain",
+                              "flash_attention", "flash_attention_bwd")}
+    for rec, key in ((hist_rec, "frontier_histogram"),
+                     (gain_rec, "split_gain"), (flash_rec, "flash_attention"),
+                     (bwd_rec, "flash_attention_bwd")):
+        rec["launches_by_path"]["dryrun"] = dry_launches[key]
+    print(json.dumps({"dryrun": dry}))
 
     print(json.dumps({"ensemble": dict(
         trees=FOREST_TREES, workers=FOREST_WORKERS,

@@ -9,9 +9,11 @@ loader), ``kernels`` (hand-written CUDA histogram, split-gain,
 forest-traversal and flash-attention forward and backward kernels for
 Hopper, their plain torch versions, and the dispatch between them),
 ``infer`` (packed forest, model registry, predict service), ``configs``
-(yadt, gemma2_9b, yi_6b, gemma3_4b, phi4_mini), ``models`` (layers,
+(yadt and the ten LMs), ``models`` (layers,
 decoder stack, serving cache, loss), ``serve`` (the LM engine and
-sampling), ``launch`` (the serving and training drivers), ``obs``
+sampling), ``launch`` (the serving and training launchers, the mesh,
+cell specs, H100 roofline and dry run), ``sharding`` (partitioning rules
+and activation constraints), ``utils`` (the scan), ``obs``
 (tracing, metrics, report), ``ensemble`` (sampling, the farm trainer,
 OOB, publish) and ``train`` (AdamW, the train step, checkpoints, the
 heartbeat, straggler and mesh-planning control plane).  Imports only

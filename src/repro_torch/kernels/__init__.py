@@ -7,5 +7,7 @@ holds their plain versions, and :mod:`.ops` picks one of the two by the
 tensors' device (the frontier engine, the forest and the LM pick by their
 ``impl`` instead).  :mod:`.autotune` sizes the tiles; :mod:`.compaction`
 feeds the histogram only the live cases; :mod:`._build` compiles
-``csrc/*.cu`` with nvcc at first use.
+``csrc/*.cu`` with nvcc at first use.  Each launch is a custom op
+(``torch.ops.repro_torch.*``): on meta tensors it returns empty outputs
+and counts the kernel's own work (``launch.roofline``).
 """

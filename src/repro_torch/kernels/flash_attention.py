@@ -8,7 +8,7 @@ and ``(B, Sk, KV, D)`` for k and v, and the same signature.  q is scaled by
 ``1/sqrt(D)`` in its own dtype before the launch, as the JAX function does
 before its ``pallas_call``.  Each dtype has one kernel and no fallback to
 the other: bfloat16 goes to the tensor-core kernel (wgmma + TMA), float32
-to the scalar one.  CUDA tensors only; the plain version is
+to the scalar one.  CUDA or meta tensors only; the plain version is
 :func:`repro_torch.kernels.ref.flash_attention_ref`.
 
 Training differentiates attention as the JAX custom VJP ``_flash`` does,
@@ -18,6 +18,13 @@ log-sum-exp, and :func:`flash_attention_bwd` (the counterpart of
 bfloat16 goes to the tensor-core backward (wgmma + TMA), float32 to the
 scalar one.  Their plain versions are ``ref.flash_attention_fwd_ref`` and
 ``ref.flash_attention_bwd_ref``.
+
+Each launch is a custom op (``torch.ops.repro_torch.flash_fwd``,
+``flash_fwd_lse``, ``flash_bwd``): on a CUDA tensor it launches the kernel;
+on a meta tensor it makes empty outputs of the right shapes and dtypes and
+launches nothing, and under ``torch.utils.flop_counter.FlopCounterMode`` it
+counts its own work, 4 * D flops a live (q, k) pair and head forward and
+10 * D backward (``launch.roofline``), on either device.
 
 The tensor-core kernels' geometry is computed here, in Python the CPU tests
 reach: :func:`tile_plan` (the live KV tiles of each query tile, heaviest
@@ -35,8 +42,11 @@ import threading
 from dataclasses import dataclass
 
 import torch
+from torch import Tensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
+from repro_torch.launch import roofline
 
 # Launches of the forward kernels in this process (the main path's proof of
 # use): all of them, and by dtype (bfloat16: tensor-core kernel, float32:
@@ -304,9 +314,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                softcap=softcap)
 
 
-def _check_cuda(*tensors: torch.Tensor) -> None:
+def _check_device(*tensors: torch.Tensor) -> None:
+    """CUDA tensors (a launch) or meta tensors (shapes only), all on one
+    device."""
     dev = tensors[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+    if dev.type not in ("cuda", "meta") or any(t.device != dev
+                                                 for t in tensors):
         raise ValueError(f"the CUDA flash attention takes CUDA tensors, got "
                          f"{', '.join(str(t.device) for t in tensors)}")
 
@@ -326,7 +339,16 @@ def flash_attention_fwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``m + log(max(l, 1e-30))`` of the softcapped, masked logits, natural-log
     units, f32 (B, H, Sq) (what :func:`flash_attention_bwd` takes)."""
     check_shapes(qs, k, v, window=window, softcap=softcap)
-    _check_cuda(qs, k, v)
+    _check_device(qs, k, v)
+    if qs.dtype == torch.bfloat16:
+        tma_geometry(qs.shape[0], qs.shape[1], k.shape[1], qs.shape[2],
+                     k.shape[2], qs.shape[3])
+    op = _fwd_lse_op if with_lse else _fwd_op
+    return op(qs, k, v, int(window), float(softcap))
+
+
+def _launch_fwd(qs: Tensor, k: Tensor, v: Tensor, window: int,
+                softcap: float, with_lse: bool):
     b, sq, h, d = qs.shape
     sk, kv = k.shape[1], k.shape[2]
     bf16 = qs.dtype == torch.bfloat16
@@ -338,7 +360,7 @@ def flash_attention_fwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=dev)
            if with_lse else None)
     if b == 0 or sq == 0:
-        return (out, lse) if with_lse else out
+        return out, lse
     with _LAUNCH_LOCK, torch.cuda.device(dev):
         lib = _lib()
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -360,7 +382,40 @@ def flash_attention_fwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError("flash_attention launch failed: "
                            + lib.flash_attention_error(err).decode())
     _count("bfloat16" if bf16 else "float32")
-    return (out, lse) if with_lse else out
+    return out, lse
+
+
+@torch.library.custom_op("repro_torch::flash_fwd", mutates_args=(),
+                         device_types="cuda")
+def _fwd_op(qs: Tensor, k: Tensor, v: Tensor, window: int,
+            softcap: float) -> Tensor:
+    return _launch_fwd(qs, k, v, window, softcap, False)[0]
+
+
+@torch.library.custom_op("repro_torch::flash_fwd_lse", mutates_args=(),
+                         device_types="cuda")
+def _fwd_lse_op(qs: Tensor, k: Tensor, v: Tensor, window: int,
+                softcap: float) -> tuple[Tensor, Tensor]:
+    return _launch_fwd(qs, k, v, window, softcap, True)
+
+
+@_fwd_op.register_fake
+def _(qs, k, v, window, softcap):
+    return qs.new_empty(qs.shape)
+
+
+@_fwd_lse_op.register_fake
+def _(qs, k, v, window, softcap):
+    b, sq, h, _ = qs.shape
+    return qs.new_empty(qs.shape), qs.new_empty((b, h, sq),
+                                                dtype=torch.float32)
+
+
+@register_flop_formula([torch.ops.repro_torch.flash_fwd,
+                        torch.ops.repro_torch.flash_fwd_lse])
+def _fwd_flops(qs_shape, k_shape, v_shape, window, softcap, *args, **kw):
+    b, sq, h, d = qs_shape
+    return roofline.flash_fwd_flops(b, sq, h, d, window)
 
 
 def check_bwd_shapes(qs, k, v, o, do, lse, *, window: int,
@@ -389,18 +444,29 @@ def flash_attention_bwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     operands), results in the inputs' dtype; no atomics, so the same inputs
     give the same bits."""
     check_bwd_shapes(qs, k, v, o, do, lse, window=window, softcap=softcap)
-    _check_cuda(qs, k, v, o, do, lse)
+    _check_device(qs, k, v, o, do, lse)
     b, sq, h, d = qs.shape
     sk, kv = k.shape[1], k.shape[2]
     if b * h > _MAX_GRID_Y:
         raise ValueError(f"B * H = {b * h} blocks exceed the grid's "
                          f"{_MAX_GRID_Y}")
-    bf16 = qs.dtype == torch.bfloat16
-    if bf16:
-        geo = tma_geometry(b, sq, sk, h, kv, d)
+    if qs.dtype == torch.bfloat16:
+        tma_geometry(b, sq, sk, h, kv, d)
         if -(-sk // BWD_TILE) > _MAX_GRID_Y:
             raise ValueError(f"Sk = {sk} needs more key tiles than the "
                              f"grid's {_MAX_GRID_Y}")
+    return _bwd_op(qs, k, v, o, do, lse, int(window), float(softcap))
+
+
+@torch.library.custom_op("repro_torch::flash_bwd", mutates_args=(),
+                         device_types="cuda")
+def _bwd_op(qs: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor,
+            lse: Tensor, window: int, softcap: float
+            ) -> tuple[Tensor, Tensor, Tensor]:
+    b, sq, h, d = qs.shape
+    sk, kv = k.shape[1], k.shape[2]
+    bf16 = qs.dtype == torch.bfloat16
+    geo = tma_geometry(b, sq, sk, h, kv, d) if bf16 else None
     qs, k, v, o, do, lse = (t.contiguous() for t in (qs, k, v, o, do, lse))
     _check_aligned(qs, k, v, o, do, lse)
     dev = qs.device
@@ -430,3 +496,15 @@ def flash_attention_bwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            + lib.flash_attention_bwd_error(err).decode())
     _count_bwd("bfloat16" if bf16 else "float32")
     return dq, dk, dv
+
+
+@_bwd_op.register_fake
+def _(qs, k, v, o, do, lse, window, softcap):
+    return qs.new_empty(qs.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_bwd)
+def _bwd_flops(qs_shape, k_shape, v_shape, o_shape, do_shape, lse_shape,
+               window, softcap, *args, **kw):
+    b, sq, h, d = qs_shape
+    return roofline.flash_bwd_flops(b, sq, h, d, window)

@@ -3,7 +3,11 @@
 Replaces the JAX package's Pallas ``frontier_histogram``: the same inputs
 and the same ``(K, A, B+1, C)`` f32 output, with unknown bins (-1) counted
 in bin B and cases of slot -1 dropped.  CUDA tensors only; the plain version
-is :func:`repro_torch.kernels.ref.frontier_histogram_ref`.
+is :func:`repro_torch.kernels.ref.frontier_histogram_ref`.  The launch is
+the custom op ``torch.ops.repro_torch.frontier_histogram``: a meta tensor
+gets an empty output of the right shape and launches nothing, and under
+``FlopCounterMode`` it counts one add per (case, attribute)
+(``launch.roofline.histogram_ops``).
 """
 
 from __future__ import annotations
@@ -12,8 +16,11 @@ import ctypes
 import threading
 
 import torch
+from torch import Tensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build, autotune
+from repro_torch.launch import roofline
 
 # Launches of the kernel in this process (the main path's proof of use).
 LAUNCHES = 0
@@ -74,7 +81,7 @@ def frontier_histogram(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     ``block_t`` / ``block_k`` pin the plan (see ``autotune.plan_histogram``).
     """
     dev = x.device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"the CUDA histogram takes CUDA tensors, got {dev}")
     if x.ndim != 2:
         raise ValueError(f"x must be (N, A), got shape {tuple(x.shape)}")
@@ -83,6 +90,17 @@ def frontier_histogram(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     _check(y, "y", torch.int32, (n,), dev)
     _check(w, "w", torch.float32, (n,), dev)
     _check(slot, "slot", torch.int32, (n,), dev)
+    return _op(x, y, w, slot, n_slots, n_bins, n_classes, n_live_slots,
+               block_t, block_k)
+
+
+@torch.library.custom_op("repro_torch::frontier_histogram", mutates_args=(),
+                         device_types="cuda")
+def _op(x: Tensor, y: Tensor, w: Tensor, slot: Tensor, n_slots: int,
+        n_bins: int, n_classes: int, n_live_slots: int | None,
+        block_t: int | None, block_k: int | None) -> Tensor:
+    dev = x.device
+    n, a_dim = x.shape
     out = torch.zeros((n_slots, a_dim, n_bins + 1, n_classes),
                       dtype=torch.float32, device=dev)
     if n == 0 or a_dim == 0 or n_slots == 0 or n_classes == 0:
@@ -104,3 +122,15 @@ def frontier_histogram(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                            + lib.frontier_histogram_error(err).decode())
     _count(plan.mode)
     return out
+
+
+@_op.register_fake
+def _(x, y, w, slot, n_slots, n_bins, n_classes, n_live_slots, block_t,
+      block_k):
+    return x.new_empty((n_slots, x.shape[1], n_bins + 1, n_classes),
+                       dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.frontier_histogram)
+def _flops(x_shape, *args, **kw):
+    return roofline.histogram_ops(*x_shape)

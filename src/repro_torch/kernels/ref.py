@@ -1,5 +1,8 @@
 """Plain PyTorch versions of the CUDA kernels: what runs on the CPU, and
-what the kernels are held against on the card."""
+what the kernels are held against on the card.  None runs on a meta tensor
+(:func:`_no_meta`): a meta tensor takes the kernel's route, whose count is
+the kernel's own work (the plain attention would count its causal S^2
+scores in full)."""
 
 from __future__ import annotations
 
@@ -12,6 +15,13 @@ from repro_torch.kernels.flash_attention import (
     check_bwd_shapes, check_shapes, scale_query)
 from repro_torch.kernels.tree_infer import (
     COL_ATTR, COL_CHILD0, COL_CLASS, COL_HEAVY, COL_NCHILD, COL_SPLIT)
+
+
+def _no_meta(t: torch.Tensor) -> None:
+    if t.is_meta:
+        raise ValueError("the plain versions do not run on meta tensors: a "
+                         "meta tensor takes the kernel's route "
+                         "(repro_torch.kernels.ops)")
 
 
 def histogram_scatter(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
@@ -36,6 +46,7 @@ def frontier_histogram_ref(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                            n_classes: int) -> torch.Tensor:
     """(K, A, B+1, C) weighted counts via one flat ``index_add_`` of
     :func:`histogram_scatter`'s pairs; the dump row is cut off."""
+    _no_meta(x)
     kw = dict(n_slots=n_slots, n_bins=n_bins, n_classes=n_classes)
     flat, src = histogram_scatter(x, y, w, slot, **kw)
     shape = (n_slots + 1, x.shape[1], n_bins + 1, n_classes)
@@ -49,6 +60,7 @@ def split_gain_ref(hist: torch.Tensor, total_w: torch.Tensor, attr_is_cont,
                    n_bins, *, min_objs: float = 2.0, criterion: str = "gain"
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """(score, split_bin) of shape (K, A) via the shared scorer."""
+    _no_meta(hist)
     return entropy.gains_from_histogram(
         hist, total_w=total_w, attr_is_cont=attr_is_cont, n_bins=n_bins,
         min_objs=min_objs, criterion=criterion)
@@ -63,6 +75,7 @@ def forest_predict_ref(node_tab: torch.Tensor, x_bins: torch.Tensor,
     attribute at or above A reads as unknown, as the JAX package's
     ``descend_once`` does (its out-of-range gather fills a negative
     value)."""
+    _no_meta(node_tab)
     t_dim = node_tab.shape[0]
     n, a_dim = x_bins.shape
     col = node_tab.unbind(-1)
@@ -123,6 +136,7 @@ def flash_attention_fwd_ref(qs: torch.Tensor, k: torch.Tensor,
     (B, H, Sq); ``m + log(l)`` of the JAX ``_flash_fwd``'s stats).  Rows go
     ``q_chunk`` at a time, and each chunk reads only the keys its causal
     window can reach, so the logits stay small."""
+    _no_meta(qs)
     check_shapes(qs, k, v, window=window, softcap=softcap)
     b, sq, h, d = qs.shape
     sk, kv = k.shape[1], k.shape[2]
@@ -167,6 +181,7 @@ def flash_attention_bwd_ref(qs: torch.Tensor, k: torch.Tensor,
     ``exp(logit - lse)`` (the JAX ``exp(logit - m) / l``), so no (Sq, Sk)
     array is ever made.  f32 inside, results in the inputs' dtype.
     """
+    _no_meta(qs)
     check_bwd_shapes(qs, k, v, o, do, lse, window=window, softcap=softcap)
     b, sq, h, d = qs.shape
     sk, kv = k.shape[1], k.shape[2]

@@ -3,7 +3,10 @@
 Replaces the JAX package's Pallas ``split_gain``: from the (K, A, B, C)
 frontier histogram, ``score`` f32 (K, A) (-inf = no valid split) and
 ``split_bin`` int32 (K, A) (-1 for discrete attributes).  CUDA tensors only;
-the plain version is :func:`repro_torch.kernels.ref.split_gain_ref`.
+the plain version is :func:`repro_torch.kernels.ref.split_gain_ref`.  The
+launch is the custom op ``torch.ops.repro_torch.split_gain``: a meta tensor
+gets empty outputs and launches nothing, and under ``FlopCounterMode`` it
+counts ``launch.roofline.split_gain_ops``.
 """
 
 from __future__ import annotations
@@ -12,8 +15,11 @@ import ctypes
 import threading
 
 import torch
+from torch import Tensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build, autotune
+from repro_torch.launch import roofline
 
 # Launches of the kernel in this process (the main path's proof of use).
 LAUNCHES = 0
@@ -60,7 +66,7 @@ def split_gain(hist: torch.Tensor, total_w: torch.Tensor,
     first B bins of the histogram kernel's (K, A, B+1, C) output.
     """
     dev = hist.device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"the CUDA split gain takes CUDA tensors, got {dev}")
     if criterion not in CRITERIA:
         raise ValueError(f"unknown criterion: {criterion!r}")
@@ -79,12 +85,23 @@ def split_gain(hist: torch.Tensor, total_w: torch.Tensor,
             raise ValueError(
                 f"{name} must be a contiguous {dtype} {shape} tensor on "
                 f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if k and a_dim and (b_dim == 0 or c_dim == 0):
+        raise ValueError(f"hist needs B >= 1 and C >= 1, got {b_dim}, {c_dim}")
+    return _op(hist, total_w, attr_is_cont, n_bins, float(min_objs),
+               criterion, block_b)
+
+
+@torch.library.custom_op("repro_torch::split_gain", mutates_args=(),
+                         device_types="cuda")
+def _op(hist: Tensor, total_w: Tensor, attr_is_cont: Tensor, n_bins: Tensor,
+        min_objs: float, criterion: str, block_b: int | None
+        ) -> tuple[Tensor, Tensor]:
+    dev = hist.device
+    k, a_dim, b_dim, c_dim = hist.shape
     score = torch.empty((k, a_dim), dtype=torch.float32, device=dev)
     split_bin = torch.empty((k, a_dim), dtype=torch.int32, device=dev)
     if k == 0 or a_dim == 0:
         return score, split_bin
-    if b_dim == 0 or c_dim == 0:
-        raise ValueError(f"hist needs B >= 1 and C >= 1, got {b_dim}, {c_dim}")
     plan = autotune.plan_split_gain(n_bins=b_dim, n_classes=c_dim,
                                     block_b=block_b)
     with _LAUNCH_LOCK, torch.cuda.device(dev):
@@ -101,3 +118,15 @@ def split_gain(hist: torch.Tensor, total_w: torch.Tensor,
                            + lib.split_gain_error(err).decode())
     _count()
     return score, split_bin
+
+
+@_op.register_fake
+def _(hist, total_w, attr_is_cont, n_bins, min_objs, criterion, block_b):
+    k, a_dim = hist.shape[:2]
+    return (hist.new_empty((k, a_dim)),
+            hist.new_empty((k, a_dim), dtype=torch.int32))
+
+
+@register_flop_formula(torch.ops.repro_torch.split_gain)
+def _flops(hist_shape, *args, **kw):
+    return roofline.split_gain_ops(*hist_shape)

@@ -4,7 +4,11 @@ Replaces the JAX package's Pallas ``forest_predict``: the same packed
 ``(T, M, NODE_COLS)`` node table, ``(N, A)`` binned cases (-1 unknown) and
 ``(A,)`` continuous flags in, the ``(T, N)`` int32 leaf classes out.  CUDA
 tensors only; the plain version is
-:func:`repro_torch.kernels.ref.forest_predict_ref`.
+:func:`repro_torch.kernels.ref.forest_predict_ref`.  The launch is the custom
+op ``torch.ops.repro_torch.forest_predict``: a meta tensor gets an empty
+output and launches nothing, and under ``FlopCounterMode`` it counts
+``launch.roofline.traversal_ops`` of every walk descending ``max_depth``
+levels (at most what the data takes: a meta tensor holds none).
 """
 
 from __future__ import annotations
@@ -13,8 +17,11 @@ import ctypes
 import threading
 
 import torch
+from torch import Tensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build, autotune
+from repro_torch.launch import roofline
 
 #: Column layout of the packed node table (see ``Forest.node_table``).
 COL_ATTR, COL_SPLIT, COL_CHILD0, COL_NCHILD, COL_HEAVY, COL_CLASS = range(6)
@@ -61,7 +68,7 @@ def forest_predict(node_tab: torch.Tensor, x_bins: torch.Tensor,
     ``block_n`` pins the cases (threads) a block (None: the autotune plan).
     """
     dev = node_tab.device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"the CUDA forest traversal takes CUDA tensors, "
                          f"got {dev}")
     if node_tab.ndim != 3 or node_tab.shape[-1] != NODE_COLS:
@@ -83,11 +90,21 @@ def forest_predict(node_tab: torch.Tensor, x_bins: torch.Tensor,
                 f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     if max_depth < 0:
         raise ValueError(f"max_depth must be >= 0, got {max_depth}")
+    if n and t_dim and m_dim == 0:
+        raise ValueError("node_tab needs M >= 1 (the root)")
+    return _op(node_tab, x_bins, attr_is_cont, int(max_depth), block_n)
+
+
+@torch.library.custom_op("repro_torch::forest_predict", mutates_args=(),
+                         device_types="cuda")
+def _op(node_tab: Tensor, x_bins: Tensor, attr_is_cont: Tensor,
+        max_depth: int, block_n: int | None) -> Tensor:
+    dev = node_tab.device
+    t_dim, m_dim, _ = node_tab.shape
+    n, a_dim = x_bins.shape
     out = torch.empty((t_dim, n), dtype=torch.int32, device=dev)
     if n == 0 or t_dim == 0:
         return out
-    if m_dim == 0:
-        raise ValueError("node_tab needs M >= 1 (the root)")
     plan = autotune.plan_infer_blocks(n_cases=n, n_trees=t_dim,
                                       block_n=block_n)
     lib = _lib()
@@ -102,3 +119,13 @@ def forest_predict(node_tab: torch.Tensor, x_bins: torch.Tensor,
                            + lib.forest_predict_error(err).decode())
     _count(plan.mode)
     return out
+
+
+@_op.register_fake
+def _(node_tab, x_bins, attr_is_cont, max_depth, block_n):
+    return x_bins.new_empty((node_tab.shape[0], x_bins.shape[0]))
+
+
+@register_flop_formula(torch.ops.repro_torch.forest_predict)
+def _flops(tab_shape, x_shape, cont_shape, max_depth, *args, **kw):
+    return roofline.traversal_ops(tab_shape[0] * x_shape[0] * max_depth)

@@ -227,7 +227,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
     kw = dict(window=spec.window, softcap=spec.softcap)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        kernel = impl == "cuda" or (impl is None and ops.is_cuda(q))
+        kernel = impl == "cuda" or (impl is None and ops.kernel_route(q))
         return _Flash.apply(_flash.scale_query(q), k, v, spec.window,
                             spec.softcap, kernel)
     if impl is None:

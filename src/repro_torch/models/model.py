@@ -20,6 +20,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import frontends, kvcache, layers, transformer
+from repro_torch.utils import scan as uscan
 
 
 IGNORE_ID = -100
@@ -40,23 +41,30 @@ def chunked_cross_entropy(x: torch.Tensor, unembed_fn: Callable,
                           labels: torch.Tensor, *, chunk: int = CE_CHUNK
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """Mean CE over the tokens whose label is not :data:`IGNORE_ID`, and
-    their count (f32), ``chunk`` positions at a time.  Under autograd each
-    chunk is a checkpoint: its logits are made again in the backward rather
-    than kept."""
+    their count (f32), ``chunk`` positions at a time (a
+    :func:`repro_torch.utils.scan.scan` over the chunks, as the JAX
+    function scans them).  Under autograd each chunk is a checkpoint: its
+    logits are made again in the backward rather than kept."""
     b, s, _ = x.shape
-    chunk = min(chunk, s)
+    chunk = min(uscan.analysis_chunk(chunk, s), s)
     if s % chunk:
         raise ValueError(f"seq_len {s} must divide by the CE chunk {chunk}")
-    tot = torch.zeros((), dtype=torch.float32, device=x.device)
-    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
-    for c0 in range(0, s, chunk):
-        xi, li = x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
-        if torch.is_grad_enabled() and x.requires_grad:
-            loss, n = checkpoint(_chunk_loss, xi, li, unembed_fn,
+    n = s // chunk
+    xc = x.reshape(b, n, chunk, -1).transpose(0, 1)
+    lc = labels.reshape(b, n, chunk).transpose(0, 1)
+    remat = torch.is_grad_enabled() and x.requires_grad
+
+    def step(carry, inp):
+        tot, cnt = carry
+        if remat:
+            loss, k = checkpoint(_chunk_loss, *inp, unembed_fn,
                                  use_reentrant=False)
         else:
-            loss, n = _chunk_loss(xi, li, unembed_fn)
-        tot, cnt = tot + loss, cnt + n
+            loss, k = _chunk_loss(*inp, unembed_fn)
+        return (tot + loss, cnt + k), None
+
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    (tot, cnt), _ = uscan.scan(step, (zero, zero), (xc, lc))
     return tot / torch.clamp_min(cnt, 1.0), cnt
 
 
@@ -64,6 +72,7 @@ def chunked_cross_entropy(x: torch.Tensor, unembed_fn: Callable,
 class Model:
     cfg: ModelConfig
     init: Callable[..., transformer.Transformer]
+    init_meta: Callable[[], transformer.Transformer]
     loss_fn: Callable[..., tuple[torch.Tensor, dict]]
     prefill: Callable[..., tuple[torch.Tensor, list]]
     decode_step: Callable[..., tuple[torch.Tensor, list]]
@@ -130,5 +139,7 @@ def build_model(cfg: ModelConfig, *, impl: str | None = None) -> Model:
     def init_cache(batch: int, max_seq: int, device=None):
         return kvcache.init_cache(cfg, batch, max_seq, device)
 
-    return Model(cfg=cfg, init=init, loss_fn=loss_fn, prefill=prefill,
-                 decode_step=decode_step, init_cache=init_cache)
+    return Model(cfg=cfg, init=init,
+                 init_meta=lambda: transformer.init_meta(cfg),
+                 loss_fn=loss_fn, prefill=prefill, decode_step=decode_step,
+                 init_cache=init_cache)

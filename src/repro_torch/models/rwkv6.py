@@ -12,7 +12,8 @@ ww_t = w0 + LoRA(x_t), and token-shift mixing on every branch input.
 :func:`time_mix` evaluates it in chunks of 128 tokens, as the JAX
 ``lax.scan`` does: within a chunk the interaction is a dense (L, L)
 decay-masked product, across chunks a (B, H, hd, hd) f32 state flows
-through a Python loop of batched einsums.  A sequence longer than a chunk
+through :func:`repro_torch.utils.scan.scan` (a Python loop) of batched
+einsums.  A sequence longer than a chunk
 must be a multiple of it (the JAX package asserts the same); the port
 raises a ``ValueError`` and does not pad.  :func:`time_mix_step` is the
 O(1) single-token path of decode.  ``jnp.var`` is the population variance:
@@ -29,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.utils import scan as uscan
 
 Params = Mapping[str, torch.Tensor]
 CHUNK = 128
@@ -136,10 +138,8 @@ def time_mix(p: Params, s: RWKVSpec, x: torch.Tensor, *,
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=x.device), diagonal=-1)
 
-    state = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=x.device)
-    outs = []
-    for i in range(n_chunks):
-        rc_, kc_, vc_, cum_, ct_ = rc[i], kc[i], vc[i], cum[i], ct[i]
+    def scan_chunk(state, inp):
+        rc_, kc_, vc_, cum_, ct_ = inp
         # inter-chunk: r_t . (decay(chunk start -> t-1) * S_prev)
         decay_in = torch.exp(ct_)                                # (B,H,L,hd)
         out = torch.einsum("bhld,bhdv->bhlv", rc_ * decay_in, state)
@@ -155,8 +155,11 @@ def time_mix(p: Params, s: RWKVSpec, x: torch.Tensor, *,
         total = cum_[:, :, -1:, :]                               # (B,H,1,hd)
         state = state * torch.exp(total.squeeze(2))[..., None] + torch.einsum(
             "bhsd,bhsv->bhdv", kc_ * torch.exp(total - cum_), vc_)
-        outs.append(out)
-    out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, seq, h, hd)
+        return state, out
+
+    s0 = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=x.device)
+    state, outs = uscan.scan(scan_chunk, s0, (rc, kc, vc, cum, ct))
+    out = outs.permute(1, 0, 3, 2, 4).reshape(b, seq, h, hd)
 
     # per-head groupnorm, then the output gate and projection
     out = _group_norm(out, p["ln_out_scale"])

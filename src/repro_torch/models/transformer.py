@@ -335,6 +335,24 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> Transformer:
     return Transformer(cfg, p)
 
 
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws are meta tensors: ``torch.randn(...,
+    generator=g, device=g.device)`` gives the shape and dtype and draws
+    nothing (``torch.Generator`` has no meta device)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def init_meta(cfg: ModelConfig) -> Transformer:
+    """The stack of :func:`init` as meta tensors: every leaf's shape and
+    dtype (the f32 leaves f32), nothing drawn or allocated; the counterpart
+    of the JAX ``jax.eval_shape(model.init, key)``.  Seconds even for
+    llama4_scout's 107.77B parameters."""
+    return init(_MetaGenerator(), cfg)
+
+
 def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,
                     device=None) -> Transformer:
     """The port's stack holding the weights of a JAX param tree.

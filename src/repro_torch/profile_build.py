@@ -44,13 +44,27 @@ import dataclasses
 import json
 import time
 
+
+def _this_roofline():
+    """This checkout's ``launch/roofline.py`` (the H100's peaks and the
+    kernels' bound formulas), loaded by path: with ``--against`` the
+    profiled port is another checkout's, which may lack it."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+    path = Path(__file__).resolve().parent / "launch" / "roofline.py"
+    spec = importlib.util.spec_from_file_location("_this_roofline", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+roofline = _this_roofline()
+
 SYD_CASES = 10_000_000
 SYD_BINS = 256
 SYD_SEED = 0
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): memory, and the
-# CUDA cores' f32 rate
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
 # Cycles the card spins before each timed index_add_, so that the call is
 # queued before its start event runs (about 20 us at the H100's clock).
 QUEUE_CYCLES = 40_000
@@ -102,9 +116,8 @@ def histogram_bound_ms(n: int, a: int, cells: int) -> tuple[float, str]:
     slot) read once, each non-zero output cell written once (the wrapper's
     ``torch.zeros`` writes the rest, outside the kernel); one add per
     (case, attr)."""
-    t_bytes = (n * (4 * a + 12) + cells * 4) / HBM_BYTES_PER_S * 1e3
-    t_ops = n * a / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return roofline.bound_ms(roofline.histogram_bytes(n, a, cells),
+                             roofline.histogram_ops(n, a))
 
 
 # Live-case classes of the histogram's launches, for the time by size.
@@ -134,8 +147,9 @@ def histogram_by_size(prof, shapes, bounds) -> list[dict]:
 
 
 def split_gain_bound_ms(k: int, a: int, b: int, c: int) -> float:
-    """The (K, A, B, C) f32 histogram read once (bytes bound it)."""
-    return k * a * b * c * 4 / HBM_BYTES_PER_S * 1e3
+    """The (K, A, B, C) f32 histogram and the small inputs read once, the
+    (K, A) outputs written once (bytes bound it)."""
+    return roofline.bound_ms(roofline.split_gain_bytes(k, a, b, c), 0)[0]
 
 
 def index_add_ms(ds, cfg) -> tuple[float | None, int]:

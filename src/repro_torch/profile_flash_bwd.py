@@ -30,13 +30,22 @@ LAYERS = {
     "gemma3_4b_local": (2, 4_096, 8, 4, 256, 1_024),
     "phi4_mini": (2, 4_096, 24, 8, 128, 0),
 }
-BF16_TENSOR_OPS_PER_S = 989e12
+def _this_roofline():
+    """This checkout's ``launch/roofline.py`` (the H100's peaks and the
+    kernels' bound formulas), loaded by path: with ``--against`` the
+    profiled port is another checkout's, which may lack it."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+    path = Path(__file__).resolve().parent / "launch" / "roofline.py"
+    spec = importlib.util.spec_from_file_location("_this_roofline", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
 
 
-def _live_pairs(s: int, window: int) -> int:
-    if window <= 0 or window >= s:
-        return s * (s + 1) // 2
-    return window * (window + 1) // 2 + (s - window) * window
+roofline = _this_roofline()
 
 
 def _ms(fn, reps: int) -> float:
@@ -98,8 +107,9 @@ def profile() -> dict:
                 qs, k, v, o, do, lse, window=window), 10),
             plain_ms=_ms(lambda: ref.flash_attention_bwd_ref(
                 qs, k, v, o, do, lse, window=window), 3),
-            bound_ms=10 * b * h * d * _live_pairs(s, window)
-            / BF16_TENSOR_OPS_PER_S * 1e3, library_ms=None)
+            bound_ms=roofline.bound_ms(
+                0, roofline.flash_bwd_flops(b, s, h, d, window),
+                roofline.BF16_TENSOR_OPS_PER_S)[0], library_ms=None)
         row["kernels_ms"] = _kernels_ms(
             lambda: flash_attention.flash_attention_bwd(
                 qs, k, v, o, do, lse, window=window))

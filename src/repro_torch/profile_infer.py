@@ -33,6 +33,24 @@ import json
 import time
 from pathlib import Path
 
+
+def _this_roofline():
+    """This checkout's ``launch/roofline.py`` (the H100's peaks and the
+    kernels' bound formulas), loaded by path: with ``--against`` the
+    profiled port is another checkout's, which may lack it."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+    path = Path(__file__).resolve().parent / "launch" / "roofline.py"
+    spec = importlib.util.spec_from_file_location("_this_roofline", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+roofline = _this_roofline()
+
 SYD_CASES = 10_000_000
 SYD_BINS = 256
 SYD_SEED = 0
@@ -44,13 +62,6 @@ CENSUS_FOREST_TREES = 4
 SERVE_BATCH = 1024
 SMALL_TREES = 70_000
 SMALL_SEED = 0
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): memory, and the
-# CUDA cores' f32 rate, used for the walks' integer operations
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-# integer operations a descent step: leaf test, unknown test, threshold
-# test, two clip bounds, child add
-OPS_PER_STEP = 6
 # block sizes pinned by --variants, at N = 10M and at the serving batch
 VARIANTS = [(block_n, n) for n in (SYD_CASES, SERVE_BATCH)
             for block_n in (32, 64, 128, 256, 512, 1024)]
@@ -96,7 +107,7 @@ def traversal_bound(tab, x, cont, max_depth: int) -> dict:
     """The least time of one traversal on the H100: bytes, the rows, the
     distinct (tree, node) table rows their walks visit (the nodes they end
     at and those nodes' ancestors, 32 bytes each) and the labels once each;
-    operations, OPS_PER_STEP a descent step this data takes (each walk's
+    operations, ``roofline.OPS_PER_STEP`` a descent step this data takes (each walk's
     final depth) at the scalar peak.  Walks the plain version once with
     each node's row id in the class column."""
     import torch
@@ -142,13 +153,13 @@ def traversal_bound(tab, x, cont, max_depth: int) -> dict:
     from_row = (through - ends_at).reshape(t_dim, m_dim)
     below = {r: float(from_row[:, :r].sum()) / max(steps, 1)
              for r in STEP_ROWS}
-    n_bytes = n * a_dim * 4 + rows * 32 + t_dim * n * 4
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = OPS_PER_STEP * steps / FP32_OPS_PER_S * 1e3
+    n_bytes = roofline.traversal_bytes(n, a_dim, t_dim, rows)
+    t_bytes = roofline.bound_ms(n_bytes, 0)[0]
+    t_ops = roofline.bound_ms(0, roofline.traversal_ops(steps))[0]
+    bound_ms, bound_by = roofline.bound_ms(n_bytes,
+                                           roofline.traversal_ops(steps))
     return dict(steps=steps, steps_below_row=below, rows_visited=rows,
-                bytes=n_bytes,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=n_bytes, bound_ms=bound_ms, bound_by=bound_by,
                 bytes_ms=t_bytes, operations_ms=t_ops)
 
 

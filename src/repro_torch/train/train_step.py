@@ -12,6 +12,7 @@ JAX ``lax.scan`` does; the peak then holds one microbatch's activations.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Mapping
 
@@ -19,6 +20,7 @@ import torch
 from torch import nn
 
 from repro_torch.train import optimizer as opt
+from repro_torch.utils import scan as uscan
 
 
 @dataclasses.dataclass
@@ -78,16 +80,23 @@ def make_train_step(loss_fn: Callable, cfg: opt.AdamWConfig, *,
         acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                for k, p in leaves.items()}
         metrics_acc: dict[str, torch.Tensor] = {}
-        for mb in _split(batch, grad_accum):
-            loss, metrics = loss_fn(params, mb)
-            grads = torch.autograd.grad(loss, list(leaves.values()))
-            for a, g in zip(acc.values(), grads):
-                a.add_(g.float() / grad_accum)
-            del grads
-            for k, x in metrics.items():
-                part = x.detach().float() / grad_accum
-                metrics_acc[k] = (metrics_acc[k] + part if k in metrics_acc
-                                  else torch.zeros_like(part) + part)
+        mbs = _split(batch, grad_accum)
+        # counting on meta tensors: one microbatch counted grad_accum times
+        # (utils/scan.py); on real tensors every microbatch runs
+        once = uscan.counting_meta(batch)
+        for mb in mbs[:1] if once else mbs:
+            with (uscan.counted(grad_accum) if once
+                  else contextlib.nullcontext()):
+                loss, metrics = loss_fn(params, mb)
+                grads = torch.autograd.grad(loss, list(leaves.values()))
+                for a, g in zip(acc.values(), grads):
+                    a.add_(g.float() / grad_accum)
+                del grads
+                for k, x in metrics.items():
+                    part = x.detach().float() / grad_accum
+                    metrics_acc[k] = (metrics_acc[k] + part
+                                      if k in metrics_acc
+                                      else torch.zeros_like(part) + part)
         return metrics_acc["loss"], metrics_acc, acc
 
     def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:

@@ -49,6 +49,31 @@ def test_importing_every_module_loads_no_jax():
     assert out.returncode == 0, out.stderr
 
 
+def test_importing_every_module_sets_no_env_and_makes_no_process_group():
+    """The planning tooling (launch.mesh, dryrun, hillclimb) sets no
+    environment variable at import, as the JAX dry run's XLA_FLAGS line
+    does, and initialises no process group."""
+    modules = sorted(
+        ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+        .removesuffix(".__init__") for p in PORT.rglob("*.py"))
+    assert {"repro_torch.launch.dryrun", "repro_torch.launch.mesh",
+            "repro_torch.launch.hillclimb", "repro_torch.sharding.act",
+            "repro_torch.utils.scan"} <= set(modules)
+    code = (
+        "import importlib, os\n"
+        "before = dict(os.environ)\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert dict(os.environ) == before, set(os.environ) ^ set(before)\n"
+        "import torch.distributed as dist\n"
+        "assert not (dist.is_available() and dist.is_initialized())\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def _tiny_dataset():
     from repro_torch.core import binning
     rng = np.random.default_rng(0)
