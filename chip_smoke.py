@@ -176,8 +176,27 @@ Phases (each one that fails ends the run with a non-zero exit):
      superstep, the flash forward once a layer in the prefill and the
      backward once a layer in a training step.  Prints each cell's step,
      bound, roofline_share and peak beside the card, and {"dryrun": {...}}.
+ 14. the partitioned step (DTensor over a DeviceMesh), after 13 has freed
+     the card: (a) in worker processes, on meta tensors over a fake process
+     group (launch.dryrun --mesh), phase 13's four LM card cells at full
+     width and global shape on the 16x16 pod grid, and
+     tests/test_dryrun_small.py's five cells (reduced configs, shrunk
+     shapes) on 2x4: each ok, communicating (collective bytes > 0), its
+     flops per device at most the one-device count; the train cells
+     all-gather (ZeRO-3 parameters) and reduce-scatter or all-reduce
+     (gradients); (b) then on the card, a one-rank NCCL group made here
+     (a local TCP address) and its 1x1 DeviceMesh: gemma3_4b/train_4k
+     at B 2 and gemma2_9b/prefill_32k at B 1 through
+     launch.specs.run_cell_step on the mesh (the arguments laid out as
+     DTensors, the kernels launched on the shards), each against the same
+     cell run unpartitioned: the loss and grad norm, or the prefill's
+     logits, equal (bit for bit reported), its flops counted on the card
+     equal to phase 13's meta count at that batch, the flash forward once a
+     layer in the prefill and the backward once a layer in the step; its
+     step ms printed beside phase 13's (what DTensor costs the host).  The
+     group is destroyed after.  Prints {"partitioned": {...}}.
 
-Before the kernels' JSON record come {"dryrun": {...}}, {"archs": {...}}, {"farm_model": {...}}, {"train":
+Before the kernels' JSON record come {"partitioned": {...}}, {"dryrun": {...}}, {"archs": {...}}, {"farm_model": {...}}, {"train":
 {...}} and {"ensemble": {...}} (trees/s, the OOB score, coverage and time
 split, the chaos phase's failures and wall times); the last line is {"ok":
 true, "device": {...}}.  It imports
@@ -382,6 +401,29 @@ DRYRUN_CARD_CELLS = (("yadt", "train_4k", None),
 # a card cell runs its step 1 + TIMED_STEPS times, then once counted
 DRYRUN_RUNS = 5
 
+# Phase 14: the partitioned step.  (a) phase 13's LM card cells on the pod
+# grid and tests/test_dryrun_small.py's cells on its 2x4 mesh (reduced
+# configs, its shrunk shapes: SMALL_SHAPES), counted on meta tensors in
+# PARTITION_JOBS workers; (b) these cells on the card over a one-rank NCCL
+# mesh, (arch, shape, batch), each run 1 + TIMED_STEPS times and once
+# counted.
+PARTITION_JOBS = 6
+PARTITION_POD_CELLS = (("gemma2_9b", "prefill_32k"), ("yi_6b", "decode_32k"),
+                       ("gemma3_4b", "long_500k"), ("gemma3_4b", "train_4k"))
+PARTITION_SMALL_CELLS = (("yi_6b", "train_4k"), ("phi35_moe", "train_4k"),
+                         ("gemma2_9b", "decode_32k"),
+                         ("rwkv6_3b", "long_500k"),
+                         ("recurrentgemma_2b", "prefill_32k"))
+SMALL_SHAPES = {"train_4k": (128, 8, "train"),
+                "prefill_32k": (256, 4, "prefill"),
+                "decode_32k": (256, 8, "decode"),
+                "long_500k": (512, 1, "decode")}
+PARTITION_CARD_CELLS = (("gemma3_4b", "train_4k", 2),
+                        ("gemma2_9b", "prefill_32k", 1))
+# The one-rank step runs the same ops on the same tensors as the
+# unpartitioned one: its outputs must equal them bit for bit (every card
+# run so far has; the largest difference is printed all the same).
+
 # Phase 9: the c45 oracle and the farm under chaos on census_pums, cut to
 # CHAOS_SCALE of its 299,285 cases (29,928): on the full set the oracle
 # alone takes longer than the 90 s this phase gives it, and the farm build
@@ -420,6 +462,65 @@ class SmokeError(RuntimeError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeError(msg)
+
+
+def _children() -> dict[int, str]:
+    """This process's children still running (pid -> command line), read
+    from /proc; exited ones are reaped on the way."""
+    import os
+    me, live = os.getpid(), {}
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            text = stat.read_text()
+            # "pid (comm) state ppid ...": comm may hold spaces or ")"
+            state, ppid = text[text.rindex(")") + 2:].split()[:2]
+            if int(ppid) != me:
+                continue
+            pid = int(stat.parent.name)
+            if state == "Z":
+                os.waitpid(pid, os.WNOHANG)
+                continue
+            live[pid] = (stat.parent / "cmdline").read_bytes().replace(
+                b"\0", b" ").decode(errors="replace").strip()
+        except (OSError, ValueError):       # ended or reaped meanwhile
+            continue
+    return live
+
+
+def stop_children(grace_s: float = 10.0) -> list[str]:
+    """Ends every process this run started that is still running; returns
+    a line for each.
+
+    The spawn pools of phases 13 and 14 leave multiprocessing's resource
+    tracker behind them: it would live until this process exits and only
+    then see its pipe close, outlasting the run.  It is stopped here
+    (its pipe closed, the process waited for).  Any other child still
+    running is sent SIGTERM, SIGKILL after ``grace_s``, and reaped."""
+    import os
+    import signal
+    from multiprocessing import resource_tracker
+    stopped = []
+    tracker = resource_tracker._resource_tracker
+    if (getattr(tracker, "_pid", None) is not None
+            and hasattr(tracker, "_stop")):
+        stopped.append(f"{tracker._pid}: multiprocessing resource tracker")
+        tracker._stop()
+    left = _children()
+    for pid in left:
+        os.kill(pid, signal.SIGTERM)
+    deadline = time.monotonic() + grace_s
+    for pid, cmd in left.items():
+        stopped.append(f"{pid}: {cmd}")
+        try:
+            while os.waitpid(pid, os.WNOHANG) == (0, 0):
+                if time.monotonic() > deadline:
+                    os.kill(pid, signal.SIGKILL)
+                    os.waitpid(pid, 0)
+                    break
+                time.sleep(0.05)
+        except ChildProcessError:           # reaped by its own waiter
+            pass
+    return stopped
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -2177,6 +2278,195 @@ def dryrun_cells(card: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 14: the partitioned step
+# --------------------------------------------------------------------------
+
+def _use_small() -> None:
+    """tests/test_dryrun_small.py's shrunk shapes and reduced configs, in
+    this (worker) process."""
+    from repro_torch.configs import base
+    base.SHAPES = {k: base.ShapeSpec(k, *v) for k, v in SMALL_SHAPES.items()}
+    real = base.get_config
+    reduced = {a: base.reduced(real(a)) for a in base.ARCH_IDS}
+    base.get_config = lambda a: reduced[a] if a in reduced else real(a)
+
+
+def _mesh_cell(job):
+    """One partitioned meta count (a worker process's job): the cell on
+    its mesh, and for a small cell its one-device count too."""
+    from repro_torch.launch import dryrun
+    arch, shape, mesh = job
+    if mesh == "2x4":
+        _use_small()
+    r = dryrun.run_cell(arch, shape, mesh=mesh, verbose=False)
+    if mesh == "2x4":
+        r["one_device_flops"] = dryrun.run_cell(arch, shape,
+                                                verbose=False)["device_flops"]
+    return r
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _step_outputs(cell, out) -> dict:
+    """What the card run compares: a train step's loss and grad norm, a
+    prefill's last-position logits (DTensors gathered)."""
+    from repro_torch.sharding import partitioning as part
+    if cell.shape.kind == "train":
+        metrics = part.gather(out[1])
+        return {k: metrics[k].float().cpu() for k in ("loss", "grad_norm")}
+    return {"logits": part.gather(out[0]).float().cpu()}
+
+
+def _card_cell(arch, shape, batch, mesh) -> dict:
+    """Phase 14 (b) for one cell: its step unpartitioned, then on the
+    one-rank mesh (1 + TIMED_STEPS timed runs and one counted), each from
+    seed 0's weights."""
+    import torch
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch import dryrun, specs
+
+    cell = specs.make_cell(arch, shape, device="cuda", batch=batch)
+    want = _step_outputs(cell, specs.run_cell_step(cell))
+    del cell
+    torch.cuda.empty_cache()
+    cell = specs.make_cell(arch, shape, mesh, device="cuda", batch=batch)
+    flash_attention.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got = _step_outputs(cell, specs.run_cell_step(cell, mesh))
+    ms = []
+    for _ in range(dryrun.TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        specs.run_cell_step(cell, mesh)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(
+        flash_attention=flash_attention.LAUNCHES_BY_DTYPE["bfloat16"],
+        flash_attention_bwd=flash_attention.LAUNCHES_BWD_BY_DTYPE["bfloat16"])
+    _, costs = specs.run_cell_step(cell, mesh, count=True)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del cell
+    torch.cuda.empty_cache()
+    diff = {k: float((got[k] - want[k]).abs().max()) for k in want}
+    return dict(batch=batch, step_ms=sum(ms) / len(ms), step_ms_each=ms,
+                peak_mem_gb=peak, device_flops=costs.device_flops,
+                device_bytes=costs.device_bytes,
+                coll_bytes=costs.coll_bytes,
+                n_collectives=costs.n_collectives, launches=launches,
+                runs=1 + dryrun.TIMED_STEPS,
+                bitwise=all(torch.equal(got[k], want[k]) for k in want),
+                max_abs_diff=diff)
+
+
+def partitioned(card: str, dry: dict) -> dict:
+    """Phase 14: (a) the meta counts in worker processes, then (b) the
+    card cells on a one-rank NCCL mesh; their gates."""
+    import concurrent.futures
+    import multiprocessing
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import base
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.mesh import make_mesh
+
+    jobs = [(a, s, "16x16") for a, s in PARTITION_POD_CELLS]
+    jobs += [(a, s, "2x4") for a, s in PARTITION_SMALL_CELLS]
+    pool = concurrent.futures.ProcessPoolExecutor(
+        PARTITION_JOBS, mp_context=multiprocessing.get_context("spawn"))
+    metas, errors = {}, {}
+    with pool:
+        futures = {job: pool.submit(_mesh_cell, job) for job in jobs}
+        for job, f in futures.items():
+            try:
+                metas[job] = f.result()
+            except Exception as e:              # every job's, then fail
+                errors["/".join(job)] = f"{type(e).__name__}: {e}"
+    # after the workers: the one-rank step's host time is DTensor's, not
+    # the host cores' contention
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{_free_port()}",
+        world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        on_card = {f"{a}/{s}": _card_cell(a, s, b, mesh)
+                   for a, s, b in PARTITION_CARD_CELLS}
+    finally:
+        dist.destroy_process_group()
+
+    for key, r in on_card.items():
+        arch, shape = key.split("/")
+        phase13 = dry["on_card"][key]
+        layers = base.get_config(arch).n_layers
+        n = r["launches"]
+        r["phase13_step_ms"] = phase13["step_ms"]
+        print(f"partitioned {key} on {card}, one-rank NCCL mesh: batch "
+              f"{r['batch']}, step {r['step_ms']:.3f} ms (phase 13 "
+              f"unpartitioned {phase13['step_ms']:.3f} ms), "
+              f"{'bit for bit' if r['bitwise'] else 'not bit for bit'} "
+              f"(max |diff| {r['max_abs_diff']}), {r['device_flops']:.4e} "
+              f"flops (meta {phase13['meta_device_flops']:.4e}), "
+              f"{r['n_collectives']} collectives, launches {n}, peak "
+              f"{r['peak_mem_gb']:.3f} GB")
+        check(r["bitwise"],
+              f"partitioned {key} on the card: outputs differ from the "
+              f"unpartitioned step by {r['max_abs_diff']}")
+        check(r["device_flops"] == phase13["meta_device_flops"],
+              f"partitioned {key} on the card: {r['device_flops']} flops, "
+              f"{phase13['meta_device_flops']} on meta at batch "
+              f"{r['batch']}")
+        if shape == "train_4k":
+            check(n["flash_attention_bwd"] == layers * r["runs"],
+                  f"partitioned {key}: {n['flash_attention_bwd']} backward "
+                  f"launches, expected one a layer: {layers * r['runs']}")
+        else:
+            check(n["flash_attention"] == layers * r["runs"],
+                  f"partitioned {key}: {n['flash_attention']} forward "
+                  f"launches, expected one a layer: {layers * r['runs']}")
+    check(not errors, f"partitioned meta counts failed: {errors}")
+    meta_out = {}
+    for (arch, shape, mesh_desc), r in metas.items():
+        key = f"{arch}/{shape}@{mesh_desc}"
+        one = (r["one_device_flops"] if mesh_desc == "2x4"
+               else dry["meta"][f"{arch}/{shape}"]["device_flops"])
+        check(r["status"] == "ok" and r["split"] == "partitioned",
+              f"partitioned {key}: {r['status']} ({r.get('error')})")
+        meta_out[key] = {f: r[f] for f in (
+            "device_flops", "device_bytes", "min_bytes", "device_coll_bytes",
+            "coll_by_op", "t_compute", "t_memory", "t_collective",
+            "bottleneck", "coll_link", "mem_args_gb", "t_analysis_s")}
+        meta_out[key]["one_device_flops"] = one
+        print(f"partitioned {key} (meta): {r['device_flops']:.4e} flops "
+              f"a device ({r['device_flops'] / one:.4f} of one device), "
+              f"{r['device_bytes']:.4e} bytes, collectives "
+              f"{r['device_coll_bytes']:.4e} B {r['coll_by_op']}, compute "
+              f"{r['t_compute'] * 1e3:.3f} ms, memory "
+              f"{r['t_memory'] * 1e3:.3f} ms, collective "
+              f"{r['t_collective'] * 1e3:.3f} ms at {r['coll_link']} -> "
+              f"{r['bottleneck']}")
+        check(r["device_coll_bytes"] > 0,
+              f"partitioned {key}: no collective bytes")
+        check(0 < r["device_flops"] <= one,
+              f"partitioned {key}: {r['device_flops']} flops a device, "
+              f"{one} on one")
+        ops = set(r["coll_by_op"])
+        if shape == "train_4k":
+            check("all-gather" in ops and ops & {"reduce-scatter",
+                                                  "all-reduce"},
+                  f"partitioned {key}: collectives {r['coll_by_op']}, "
+                  f"expected ZeRO-3's all-gather and a gradient reduction")
+    rate, link = rl.collective_rate(256)
+    return dict(card=card, meta=meta_out, on_card=on_card,
+                pod_rate=dict(bytes_per_s=rate, link=link))
+
+
+# --------------------------------------------------------------------------
 # phase 9: the c45 oracle and the farm under chaos
 # --------------------------------------------------------------------------
 
@@ -2528,6 +2818,15 @@ def main() -> int:
         rec["launches_by_path"]["dryrun"] = dry_launches[key]
     print(json.dumps({"dryrun": dry}))
 
+    # ---- 14. the partitioned step: counted on meshes, run on one rank
+    t0 = time.perf_counter()
+    part_run = partitioned(card, dry)
+    times["partitioned_s"] = time.perf_counter() - t0
+    for rec, key in ((flash_rec, "flash_attention"),
+                     (bwd_rec, "flash_attention_bwd")):
+        rec["launches_by_path"]["partitioned"] = sum(
+            r["launches"][key] for r in part_run["on_card"].values())
+
     print(json.dumps({"ensemble": dict(
         trees=FOREST_TREES, workers=FOREST_WORKERS,
         trees_per_s=trained["trees_per_s"], train_s=trained["train_s"],
@@ -2537,6 +2836,7 @@ def main() -> int:
             "pack_s", "predict_s", "mask_s", "vote_s")},
         chaos=chaos)}))
     print(json.dumps({"phase_seconds": times}))
+    print(json.dumps({"partitioned": part_run}))
     print(json.dumps({"kernels": [hist_rec, gain_rec, infer_rec,
                                   flash_rec, bwd_rec]}))
     print(json.dumps({"ok": True, "device": {
@@ -2547,7 +2847,11 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        rc = main()
     except SmokeError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
-        sys.exit(1)
+        rc = 1
+    finally:
+        for line in stop_children():
+            print(f"chip_smoke: stopped process {line}", file=sys.stderr)
+    sys.exit(rc)

@@ -18,6 +18,18 @@ With ``GrowConfig.compact`` set, both gather the live cases first.  Per-node
 state arrays carry one extra dump row (index M) that absorbs the writes of
 unused slots, in place of the JAX scatters' ``mode="drop"``; readers only
 look at rows below M.
+
+A superstep also runs partitioned, on DTensors (``launch.specs``' yadt
+cell: the cases sharded over the mesh, the node arrays replicated).
+splitPre and splitPost run on each rank's local tensors, as GSPMD
+replicates what it cannot partition (``nonzero``, the node scatters):
+every rank the same node arithmetic on its whole copy of the node arrays,
+and the case lookups and routing on its own cases (:func:`_local_state`).
+In splitAtt the compaction runs on the rank's own cases
+(``kernels.compaction.live_cases``) and the histogram kernel's op counts
+them under its registered sharding strategy, a partial sum across ranks
+(``sharding.act.shard_frontier_hist`` reduce-scatters it over K under the
+``yadt_rs`` knob, as the JAX package's does).
 """
 
 from __future__ import annotations
@@ -35,6 +47,9 @@ from repro_torch.core.config import GrowConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.tree import Tree
 from repro_torch.kernels import compaction, histogram, ref, split_gain
+from repro_torch.kernels._dtensor import is_dtensor
+from repro_torch.sharding.act import (active_cases_sharded, replicate,
+                                      shard_frontier_hist)
 
 EPS_W = entropy.EPS_W
 IMPLS = ("cuda", "torch")
@@ -101,16 +116,80 @@ def init_state(prob: FrontierProblem, y: torch.Tensor, w: torch.Tensor,
 # splitAtt's two kernels
 # --------------------------------------------------------------------------
 
+def _whole(t):
+    """A node-side DTensor's whole value on this rank (replicated first);
+    anything else as it is."""
+    return replicate(t).to_local() if is_dtensor(t) else t
+
+
+def _own(t, cases):
+    """A case-side DTensor's rows on this rank, laid out as ``cases``."""
+    return t.redistribute(cases.device_mesh, cases.placements).to_local()
+
+
+def _as_replicated(t, cases):
+    """``t``, the same on every rank, as a replicated DTensor on the
+    cases' mesh; a non-tensor as it is."""
+    if not isinstance(t, torch.Tensor):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = cases.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _as_cases(t, cases):
+    """This rank's rows ``t`` of a (N, ...) case array, laid out as
+    ``cases``."""
+    from torch.distributed.tensor import DTensor
+    shape = (cases.shape[0], *t.shape[1:])
+    return DTensor.from_local(t, cases.device_mesh, cases.placements,
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
+def _local_state(state: GrowState) -> GrowState:
+    """A partitioned state on this rank: the node arrays whole, the cases'
+    nodes its own rows."""
+    tree = dataclasses.replace(state.tree, **{
+        f.name: _whole(getattr(state.tree, f.name))
+        for f in dataclasses.fields(Tree)})
+    return GrowState(tree=tree, status=_whole(state.status),
+                     active=_whole(state.active),
+                     case_node=_own(state.case_node, state.case_node),
+                     n_nodes=_whole(state.n_nodes),
+                     overflow=_whole(state.overflow))
+
+
+def _laid_state(local: GrowState, cases) -> GrowState:
+    """:func:`_local_state`'s inverse, laid out as ``cases``."""
+    tree = dataclasses.replace(local.tree, **{
+        f.name: _as_replicated(getattr(local.tree, f.name), cases)
+        for f in dataclasses.fields(Tree)})
+    return GrowState(tree=tree, status=_as_replicated(local.status, cases),
+                     active=_as_replicated(local.active, cases),
+                     case_node=_as_cases(local.case_node, cases),
+                     n_nodes=_as_replicated(local.n_nodes, cases),
+                     overflow=_as_replicated(local.overflow, cases))
+
+
 def _histogram(x, y, w, slot, *, n_open: int, prob: FrontierProblem,
                impl: str):
     """The (K, A, B+1, C) histogram; the cases lie in slots below
-    ``n_open``, which sizes the kernel's shared window."""
+    ``n_open``, which sizes the kernel's shared window.  Of DTensor cases,
+    the kernel's op (on CPU shards its CPU kernel, the plain version)
+    counts each rank's cases, a partial sum over the mesh dims the cases
+    are sharded on; without the ``yadt_compact`` knob every rank takes all
+    the cases (gathered) and the histogram is replicated."""
     cfg = prob.cfg
     kw = dict(n_slots=cfg.frontier_slots, n_bins=prob.n_bins_max,
               n_classes=prob.n_classes)
+    if is_dtensor(x) and not active_cases_sharded():
+        x, y, w, slot = (replicate(t) for t in (x, y, w, slot))
     if cfg.compact:
         x, y, w, slot = compaction.live_cases(x, y, w, slot)
-    if impl == "torch":
+    if impl == "torch" and not is_dtensor(x):
         return ref.frontier_histogram_ref(x, y, w, slot, **kw)
     return histogram.frontier_histogram(x, y, w, slot, n_live_slots=n_open,
                                         block_t=cfg.block_t,
@@ -134,7 +213,14 @@ def _gains(hist, total_w, attr_is_cont, n_bins, *, prob: FrontierProblem,
 
 def split_pre(state: GrowState, *, prob: FrontierProblem
               ) -> dict[str, torch.Tensor]:
-    """Frontier selection + stop tests on stored node frequencies."""
+    """Frontier selection + stop tests on stored node frequencies.  Of a
+    partitioned state, on each rank's local tensors (the module's
+    docstring); ``slot`` then takes the cases' layout."""
+    if is_dtensor(state.case_node):
+        cases = state.case_node
+        pre = split_pre(_local_state(state), prob=prob)
+        return {k: _as_cases(v, cases) if k == "slot"
+                else _as_replicated(v, cases) for k, v in pre.items()}
     cfg = prob.cfg
     m, k = cfg.max_nodes, cfg.frontier_slots
     tree = state.tree
@@ -171,12 +257,15 @@ def split_att(state: GrowState, pre: dict, x: torch.Tensor, y: torch.Tensor,
               ) -> dict[str, torch.Tensor]:
     """The hot phase: histogram + gain over (node, attribute)."""
     b_dim = prob.n_bins_max
-    hist_u = _histogram(x, y, w, pre["slot"], n_open=pre["n_open"],
-                        prob=prob, impl=impl)
+    hist_u = shard_frontier_hist(_histogram(
+        x, y, w, pre["slot"], n_open=pre["n_open"], prob=prob, impl=impl))
     hist = hist_u[:, :, :b_dim, :]
     unknown = hist_u[:, :, b_dim, :]                              # (K, A, C)
     score, split_bin = _gains(hist, pre["total_w"], attr_is_cont, n_bins,
                               prob=prob, impl=impl)
+    # the K-wide planes whole on every rank, as the node arithmetic below
+    # and splitPost read them
+    score, split_bin = replicate(score), replicate(split_bin)
     active_k = state.active[pre["ids_safe"]] & pre["valid"][:, None]
     best_attr, _, has_split = entropy.pick_best_attribute(score, active_k)
     return dict(hist=hist, unknown=unknown, split_bin=split_bin,
@@ -187,7 +276,24 @@ def split_post(state: GrowState, pre: dict, att: dict, x: torch.Tensor,
                attr_is_cont: torch.Tensor, n_bins: torch.Tensor, *,
                prob: FrontierProblem
                ) -> tuple[GrowState, dict[str, torch.Tensor]]:
-    """Argmax done: allocate children, scatter results, route cases."""
+    """Argmax done: allocate children, scatter results, route cases.  Of a
+    partitioned state, on each rank's local tensors (the module's
+    docstring); ``n_active`` is then a partial count."""
+    if is_dtensor(state.case_node):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        cases = state.case_node
+        local, stats = split_post(
+            _local_state(state),
+            {k: _own(v, cases) if k == "slot" else _whole(v)
+             for k, v in pre.items()},
+            {k: _whole(v) for k, v in att.items()}, _own(x, cases),
+            _whole(attr_is_cont), _whole(n_bins), prob=prob)
+        stats = {k: _as_replicated(v, cases) for k, v in stats.items()}
+        stats["n_active"] = DTensor.from_local(
+            stats["n_active"].to_local(), cases.device_mesh,
+            [Partial() if p.is_shard() else Replicate()
+             for p in cases.placements], run_check=False)
+        return _laid_state(local, cases), stats
     cfg = prob.cfg
     m, k = cfg.max_nodes, cfg.frontier_slots
     a_dim, c_dim, h_dim = prob.n_attrs, prob.n_classes, prob.max_children

@@ -9,5 +9,7 @@ tensors' device (the frontier engine, the forest and the LM pick by their
 feeds the histogram only the live cases; :mod:`._build` compiles
 ``csrc/*.cu`` with nvcc at first use.  Each launch is a custom op
 (``torch.ops.repro_torch.*``): on meta tensors it returns empty outputs
-and counts the kernel's own work (``launch.roofline``).
+and counts the kernel's own work (``launch.roofline``); on DTensors it
+runs on each rank's shards by its registered sharding strategy
+(:mod:`._dtensor`: CPU shards reach the op's plain CPU kernel).
 """

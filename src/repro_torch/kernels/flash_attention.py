@@ -45,7 +45,7 @@ import torch
 from torch import Tensor
 from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _dtensor
 from repro_torch.launch import roofline
 
 # Launches of the forward kernels in this process (the main path's proof of
@@ -316,10 +316,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _check_device(*tensors: torch.Tensor) -> None:
     """CUDA tensors (a launch) or meta tensors (shapes only), all on one
-    device."""
+    device; or DTensors, whose shards may lie on the CPU (the op's CPU
+    kernel, ``kernels._dtensor``)."""
     dev = tensors[0].device
-    if dev.type not in ("cuda", "meta") or any(t.device != dev
-                                                 for t in tensors):
+    dtensors = all(map(_dtensor.is_dtensor, tensors))
+    if (dev.type not in ("cuda", "meta") and not dtensors) or any(
+            t.device != dev for t in tensors):
         raise ValueError(f"the CUDA flash attention takes CUDA tensors, got "
                          f"{', '.join(str(t.device) for t in tensors)}")
 
@@ -508,3 +510,71 @@ def _bwd_flops(qs_shape, k_shape, v_shape, o_shape, do_shape, lse_shape,
                window, softcap, *args, **kw):
     b, sq, h, d = qs_shape
     return roofline.flash_bwd_flops(b, sq, h, d, window)
+
+
+# --------------------------------------------------------------------------
+# under DTensor: the ops' layouts on one mesh dim, and their CPU kernels
+# --------------------------------------------------------------------------
+
+
+def _head_split(qs, k) -> bool:
+    """q's and kv's heads shard together only where both divide, so that
+    each shard keeps whole GQA groups."""
+    return _dtensor.divides(qs.mesh, qs.shape[2], k.shape[2])
+
+
+@_dtensor.register_sharding(torch.ops.repro_torch.flash_fwd.default)
+def _fwd_sharding(qs, k, v, window, softcap):
+    """Replicated, batch sharded, or heads sharded: the sequence and D
+    stay whole (each query row needs every key of its window)."""
+    rep, shard, _ = _dtensor.placements()
+    out = [([rep], [rep] * 3 + [None, None]),
+           ([shard(0)], [shard(0)] * 3 + [None, None])]
+    if _head_split(qs, k):
+        out.append(([shard(2)], [shard(2)] * 3 + [None, None]))
+    return out
+
+
+@_dtensor.register_sharding(torch.ops.repro_torch.flash_fwd_lse.default)
+def _fwd_lse_sharding(qs, k, v, window, softcap):
+    """As :func:`_fwd_sharding`; the (B, H, Sq) LSE follows the output's
+    batch or heads."""
+    rep, shard, _ = _dtensor.placements()
+    out = [([rep, rep], [rep] * 3 + [None, None]),
+           ([shard(0), shard(0)], [shard(0)] * 3 + [None, None])]
+    if _head_split(qs, k):
+        out.append(([shard(2), shard(1)], [shard(2)] * 3 + [None, None]))
+    return out
+
+
+@_dtensor.register_sharding(torch.ops.repro_torch.flash_bwd.default)
+def _bwd_sharding(qs, k, v, o, do, lse, window, softcap):
+    """The forward's layouts, the gradients as their inputs."""
+    rep, shard, _ = _dtensor.placements()
+    out = [([rep] * 3, [rep] * 6 + [None, None]),
+           ([shard(0)] * 3, [shard(0)] * 6 + [None, None])]
+    if _head_split(qs, k):
+        out.append(([shard(2)] * 3,
+                    [shard(2)] * 5 + [shard(1), None, None]))
+    return out
+
+
+@_dtensor.register_cpu(_fwd_op)
+def _(qs, k, v, window, softcap):
+    from repro_torch.kernels import ref
+    return ref.flash_attention_fwd_ref(qs, k, v, window=window,
+                                       softcap=softcap)[0]
+
+
+@_dtensor.register_cpu(_fwd_lse_op)
+def _(qs, k, v, window, softcap):
+    from repro_torch.kernels import ref
+    return ref.flash_attention_fwd_ref(qs, k, v, window=window,
+                                       softcap=softcap)
+
+
+@_dtensor.register_cpu(_bwd_op)
+def _(qs, k, v, o, do, lse, window, softcap):
+    from repro_torch.kernels import ref
+    return ref.flash_attention_bwd_ref(qs, k, v, o, do, lse, window=window,
+                                       softcap=softcap)

@@ -19,7 +19,7 @@ import torch
 from torch import Tensor
 from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import _build, autotune
+from repro_torch.kernels import _build, _dtensor, autotune
 from repro_torch.launch import roofline
 
 # Launches of the kernel in this process (the main path's proof of use).
@@ -81,7 +81,7 @@ def frontier_histogram(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     ``block_t`` / ``block_k`` pin the plan (see ``autotune.plan_histogram``).
     """
     dev = x.device
-    if dev.type not in ("cuda", "meta"):
+    if dev.type not in ("cuda", "meta") and not _dtensor.is_dtensor(x):
         raise ValueError(f"the CUDA histogram takes CUDA tensors, got {dev}")
     if x.ndim != 2:
         raise ValueError(f"x must be (N, A), got shape {tuple(x.shape)}")
@@ -134,3 +134,25 @@ def _(x, y, w, slot, n_slots, n_bins, n_classes, n_live_slots, block_t,
 @register_flop_formula(torch.ops.repro_torch.frontier_histogram)
 def _flops(x_shape, *args, **kw):
     return roofline.histogram_ops(*x_shape)
+
+
+@_dtensor.register_sharding(torch.ops.repro_torch.frontier_histogram.default)
+def _sharding(x, y, w, slot, n_slots, n_bins, n_classes, n_live_slots,
+              block_t, block_k):
+    """Replicated; the cases sharded, each shard's counts a partial sum
+    (``sharding.act.shard_frontier_hist`` then reduce-scatters them over
+    K, or they are summed where the histogram is read); or the attributes
+    sharded (x's columns and the output's A axis)."""
+    rep, shard, partial = _dtensor.placements()
+    rest = [None] * 6
+    return [([rep], [rep] * 4 + rest),
+            ([partial], [shard(0)] * 4 + rest),
+            ([shard(1)], [shard(1)] + [rep] * 3 + rest)]
+
+
+@_dtensor.register_cpu(_op)
+def _(x, y, w, slot, n_slots, n_bins, n_classes, n_live_slots, block_t,
+      block_k):
+    from repro_torch.kernels import ref
+    return ref.frontier_histogram_ref(x, y, w, slot, n_slots=n_slots,
+                                      n_bins=n_bins, n_classes=n_classes)

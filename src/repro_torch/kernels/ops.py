@@ -12,14 +12,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_attention as _flash
-from repro_torch.kernels import histogram, ref, tree_infer
+from repro_torch.kernels import _dtensor, histogram, ref, tree_infer
 from repro_torch.kernels import split_gain as _split_gain
 
 
 def kernel_route(t: torch.Tensor) -> bool:
-    """True for a CUDA or meta tensor (the kernel's wrapper), False for a
-    CPU one (the plain version); raises on another device."""
-    if t.device.type in ("cuda", "meta"):
+    """True for a CUDA or meta tensor or a DTensor (the kernel's wrapper:
+    a DTensor's CPU shards reach the op's plain CPU kernel), False for a
+    CPU tensor (the plain version); raises on another device."""
+    if t.device.type in ("cuda", "meta") or _dtensor.is_dtensor(t):
         return True
     if t.device.type == "cpu":
         return False

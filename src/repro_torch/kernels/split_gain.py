@@ -18,7 +18,7 @@ import torch
 from torch import Tensor
 from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import _build, autotune
+from repro_torch.kernels import _build, _dtensor, autotune
 from repro_torch.launch import roofline
 
 # Launches of the kernel in this process (the main path's proof of use).
@@ -66,7 +66,7 @@ def split_gain(hist: torch.Tensor, total_w: torch.Tensor,
     first B bins of the histogram kernel's (K, A, B+1, C) output.
     """
     dev = hist.device
-    if dev.type not in ("cuda", "meta"):
+    if dev.type not in ("cuda", "meta") and not _dtensor.is_dtensor(hist):
         raise ValueError(f"the CUDA split gain takes CUDA tensors, got {dev}")
     if criterion not in CRITERIA:
         raise ValueError(f"unknown criterion: {criterion!r}")
@@ -130,3 +130,24 @@ def _(hist, total_w, attr_is_cont, n_bins, min_objs, criterion, block_b):
 @register_flop_formula(torch.ops.repro_torch.split_gain)
 def _flops(hist_shape, *args, **kw):
     return roofline.split_gain_ops(*hist_shape)
+
+
+@_dtensor.register_sharding(torch.ops.repro_torch.split_gain.default)
+def _sharding(hist, total_w, attr_is_cont, n_bins, min_objs, criterion,
+              block_b):
+    """Replicated, or over the slots K (the histogram's and the totals'
+    first axis), or over the attributes A (the histogram's second axis,
+    the flags and bin counts): each (slot, attribute) is scored alone."""
+    rep, shard, _ = _dtensor.placements()
+    rest = [None] * 3
+    return [([rep, rep], [rep] * 4 + rest),
+            ([shard(0), shard(0)], [shard(0), shard(0), rep, rep] + rest),
+            ([shard(1), shard(1)], [shard(1), rep, shard(0), shard(0)]
+             + rest)]
+
+
+@_dtensor.register_cpu(_op)
+def _(hist, total_w, attr_is_cont, n_bins, min_objs, criterion, block_b):
+    from repro_torch.kernels import ref
+    return ref.split_gain_ref(hist, total_w, attr_is_cont, n_bins,
+                              min_objs=min_objs, criterion=criterion)

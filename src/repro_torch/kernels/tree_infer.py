@@ -20,7 +20,7 @@ import torch
 from torch import Tensor
 from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import _build, autotune
+from repro_torch.kernels import _build, _dtensor, autotune
 from repro_torch.launch import roofline
 
 #: Column layout of the packed node table (see ``Forest.node_table``).
@@ -68,7 +68,7 @@ def forest_predict(node_tab: torch.Tensor, x_bins: torch.Tensor,
     ``block_n`` pins the cases (threads) a block (None: the autotune plan).
     """
     dev = node_tab.device
-    if dev.type not in ("cuda", "meta"):
+    if dev.type not in ("cuda", "meta") and not _dtensor.is_dtensor(x_bins):
         raise ValueError(f"the CUDA forest traversal takes CUDA tensors, "
                          f"got {dev}")
     if node_tab.ndim != 3 or node_tab.shape[-1] != NODE_COLS:
@@ -129,3 +129,21 @@ def _(node_tab, x_bins, attr_is_cont, max_depth, block_n):
 @register_flop_formula(torch.ops.repro_torch.forest_predict)
 def _flops(tab_shape, x_shape, cont_shape, max_depth, *args, **kw):
     return roofline.traversal_ops(tab_shape[0] * x_shape[0] * max_depth)
+
+
+@_dtensor.register_sharding(torch.ops.repro_torch.forest_predict.default)
+def _sharding(node_tab, x_bins, attr_is_cont, max_depth, block_n):
+    """Replicated; the cases sharded (the output's N axis); or the trees
+    sharded (the table's T axis and the output's)."""
+    rep, shard, _ = _dtensor.placements()
+    rest = [None, None]
+    return [([rep], [rep] * 3 + rest),
+            ([shard(1)], [rep, shard(0), rep] + rest),
+            ([shard(0)], [shard(0), rep, rep] + rest)]
+
+
+@_dtensor.register_cpu(_op)
+def _(node_tab, x_bins, attr_is_cont, max_depth, block_n):
+    from repro_torch.kernels import ref
+    return ref.forest_predict_ref(node_tab, x_bins, attr_is_cont,
+                                  max_depth=max_depth)

@@ -2,7 +2,7 @@
 H100's roofline, whether it fits, and on the card its measured step.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma2_9b \\
-      --shape train_4k [--mesh 1|16x16] [--multi-pod]
+      --shape train_4k [--mesh 1|2x4|16x16] [--multi-pod]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all \\
       --out build/dryrun.json
   PYTHONPATH=src python -m repro_torch.launch.dryrun --device cuda \\
@@ -13,12 +13,17 @@ on the CPU) builds the cell on meta tensors at its global shape and runs
 its step once under the flop and byte counters (``launch.roofline``):
 
   * on ``--mesh 1`` (one card) the counts and the arguments are the
-    device's; on ``16x16`` (``--multi-pod``: 2x16x16) the flops and bytes
-    are the global count divided evenly (``"split": "even"``: the port has
-    no partitioned step) and ``mem_args_gb`` is exact, every argument laid
-    out by its spec (``partitioning.shard_shape``);
-  * ``mem_temp_gb`` is null (nothing runs, so nothing is measured) and the
-    collective term null on a mesh (not counted);
+    device's, and the collective term 0;
+  * on ``2x4`` or ``16x16`` (``--multi-pod``: 2x16x16) the step is
+    partitioned (``"split": "partitioned"``): a ``DeviceMesh`` of that
+    shape over torch's fake process group, made for the cell and torn down
+    after it (``launch.mesh.fake_mesh``), the arguments laid out as
+    DTensors by their specs and the step run on them
+    (``specs.run_cell_step``), so that flops, bytes and the collectives
+    (``device_coll_bytes``, ``coll_by_op``, ``t_collective`` at the mesh's
+    collective rate) are one device's own; ``mem_args_gb`` is exact, every
+    argument laid out by its spec (``partitioning.shard_shape``);
+  * ``mem_temp_gb`` is null (nothing runs, so nothing is measured);
   * the status is ``ok``, ``does_not_fit`` (a device's arguments over the
     card's 80 GB) or ``needs_device`` (the step asked a meta tensor for its
     data: ``op`` and ``where`` name the call, e.g. the ``nonzero`` of the
@@ -30,13 +35,15 @@ the global batch): once to warm up, then three timed steps, each ending in
 ``step_ms``, ``peak_mem_gb`` (``max_memory_allocated`` since a reset after
 the arguments were made), ``bound_s`` and ``roofline_share = bound_s /
 step time``, and counts the costs in a separate, untimed run.  Without a
-card it raises; it never runs on the CPU instead.  No environment variable
-is set and no process group is made.
+card it raises; it never runs on the CPU instead, and it takes only
+``--mesh 1``.  No environment variable is set; a process group is made
+only for a mesh cell on meta tensors, inside :func:`run_cell`.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -46,21 +53,36 @@ import traceback
 from repro_torch.configs import base as cfgbase
 from repro_torch.launch import roofline as rl
 from repro_torch.launch import specs
-from repro_torch.launch.mesh import abstract_mesh, production_shape
+from repro_torch.launch.mesh import abstract_mesh, fake_mesh, production_shape
 
 TIMED_STEPS = 3
 DEVICES = ("meta", "cuda")
+MESHES = ("1", "2x4", "16x16")
 
 
 def mesh_for(mesh: str = "1", *, multi_pod: bool = False):
-    """``"1"``: one card; ``"16x16"``: the pod grid (``multi_pod``: two
-    pods), as an abstract mesh (axis names and sizes)."""
+    """``"1"``: one card; ``"2x4"``: the JAX test mesh (data 2, model 4);
+    ``"16x16"``: the pod grid (``multi_pod``: two pods), as an abstract
+    mesh (axis names and sizes)."""
     if mesh == "1" and not multi_pod:
         return specs.one_device_mesh(), "1"
-    if mesh not in ("1", "16x16"):
-        raise ValueError(f"--mesh must be 1 or 16x16, got {mesh!r}")
-    m = abstract_mesh(*production_shape(multi_pod=multi_pod))
+    if mesh not in MESHES:
+        raise ValueError(f"--mesh must be one of {MESHES}, got {mesh!r}")
+    if mesh == "2x4" and not multi_pod:
+        m = abstract_mesh((2, 4), ("data", "model"))
+    else:
+        m = abstract_mesh(*production_shape(multi_pod=multi_pod))
     return m, m.desc
+
+
+def partitioned(m):
+    """A context giving the mesh a cell runs on: the abstract mesh itself
+    for one device, else a ``DeviceMesh`` of its shape over a fake process
+    group of its size (meta-device collectives: DTensor lays them out as
+    on the card's NCCL group), torn down on exit."""
+    if m.size == 1:
+        return contextlib.nullcontext(m)
+    return fake_mesh(m.sizes, m.axis_names, device_type="cuda")
 
 
 def card() -> str:
@@ -108,6 +130,13 @@ def run_cell(arch: str, shape_name: str, *, mesh: str = "1",
     m, mesh_desc = mesh_for(mesh, multi_pod=multi_pod)
     if device == "cuda" and m.size != 1:
         raise ValueError("--device cuda runs on one card: --mesh 1")
+    with partitioned(m) as dm:
+        return _run_cell(arch, shape_name, m, dm, mesh_desc, device=device,
+                         batch=batch, verbose=verbose, analyze=analyze)
+
+
+def _run_cell(arch, shape_name, m, dm, mesh_desc, *, device, batch,
+              verbose, analyze) -> dict:
     t0 = time.time()
     cell = specs.make_cell(arch, shape_name, m, device=device, batch=batch)
     t_prod = time.time() - t0
@@ -118,7 +147,7 @@ def run_cell(arch: str, shape_name: str, *, mesh: str = "1",
                mem_out_gb=None, batch=cell.batch,
                global_batch=(cell.batch if arch == "yadt" else global_batch),
                grad_accum=cell.grad_accum,
-               split="even" if m.size > 1 else None)
+               split="partitioned" if m.size > 1 else None)
     if arg_bytes > rl.HBM_BYTES:
         out["status"] = "does_not_fit"
     step_ms = peak = None
@@ -129,14 +158,15 @@ def run_cell(arch: str, shape_name: str, *, mesh: str = "1",
                    peak_mem_gb=peak / 1e9, outputs_finite=finite,
                    mem_temp_gb=(peak - arg_bytes) / 1e9)
     if verbose:
+        split = f" | split: {out['split']}" if out["split"] else ""
         print(f"[{arch} x {shape_name} x {mesh_desc} on {device}] built in "
               f"{t_prod:.0f}s | memory/device: args "
-              f"{out['mem_args_gb']:.2f} GB | {out['status']}")
+              f"{out['mem_args_gb']:.2f} GB | {out['status']}{split}")
     if not analyze:
         return out
     t0 = time.time()
     try:
-        res, costs = specs.run_cell_step(cell, m, count=True)
+        res, costs = specs.run_cell_step(cell, dm, count=True)
         del res
     except rl.NeedsDevice as e:
         out.update(status="needs_device", op=e.op, where=e.where,
@@ -149,13 +179,13 @@ def run_cell(arch: str, shape_name: str, *, mesh: str = "1",
                         peak_mem_bytes=peak, arg_bytes=arg_bytes,
                         batch=cell.batch)
     out.update(t_analysis_s=round(time.time() - t0, 1),
-               mem_out_gb=costs.out_bytes / m.size / 1e9,
+               mem_out_gb=costs.out_bytes / 1e9,
                **report.as_dict(m.size))
     if step_ms is not None:
         out["roofline_share"] = report.bound_s / (out["step_ms"] / 1e3)
     if verbose:
-        coll = ("not counted" if report.t_collective is None
-                else f"{report.t_collective * 1e3:.2f} ms")
+        coll = f"{report.t_collective * 1e3:.2f} ms" + (
+            f" ({report.coll_link})" if m.size > 1 else "")
         print(f"  costs/device: {report.device_flops:.3e} flops, "
               f"{report.device_bytes:.3e} B, min {report.min_bytes:.3e} B "
               f"({out['t_analysis_s']:.0f}s)")
@@ -164,6 +194,9 @@ def run_cell(arch: str, shape_name: str, *, mesh: str = "1",
               f"-> {report.bottleneck} | bound {report.bound_s * 1e3:.2f} ms"
               f" by {report.bound_by} | useful-flops "
               f"{report.useful_flops_ratio(m.size):.2f}")
+        if report.coll_by_op:
+            print("  collectives/device: " + ", ".join(
+                f"{op} {b:.3e} B" for op, b in report.coll_by_op.items()))
         if step_ms is not None:
             print(f"  card: {out['device']}, batch {cell.batch} of "
                   f"{out['global_batch']}: step {out['step_ms']:.2f} ms, "
@@ -193,7 +226,7 @@ def main(argv=None) -> None:
     ap.add_argument("--no-analysis", action="store_true",
                     help="build + memory only (multi-pod default)")
     ap.add_argument("--out", default=None)
-    ap.add_argument("--mesh", default="1", choices=("1", "16x16"))
+    ap.add_argument("--mesh", default="1", choices=MESHES)
     ap.add_argument("--device", default="meta", choices=DEVICES)
     ap.add_argument("--batch", type=int, default=None,
                     help="global batch run (default: the shape's)")

@@ -1,10 +1,12 @@
 """Mesh construction: the port of ``repro.launch.mesh``.
 
 :func:`make_mesh` is a ``torch.distributed`` device mesh over an
-initialised process group: nothing here creates one, and importing the
-module touches no device and no environment variable.  The caller starts
-the group (``torch.distributed.init_process_group`` with its address,
-world size and rank); a mesh of more than one device without one raises.
+initialised process group: importing the module touches no device and no
+environment variable and makes no group.  The caller starts the group
+(``torch.distributed.init_process_group`` with its address, world size and
+rank); a mesh of more than one device without one raises.
+:func:`fake_mesh` makes its own group, torch's fake one of the mesh's size
+in this one process, and destroys it on exit: the dry run's mesh.
 
 :class:`AbstractMesh` is named axes and their sizes with no devices behind
 them: what the partitioning rules and the meta dry run need, and the
@@ -13,6 +15,7 @@ counterpart of the JAX dry run's faked 512-device host mesh.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -83,3 +86,27 @@ def make_host_mesh(data: int = 2, model: int = 4, device_type: str = "cpu"):
     """A small (data, model) mesh over host devices (tests; the group's
     world size must be ``data * model``)."""
     return make_mesh((data, model), ("data", "model"), device_type)
+
+
+@contextlib.contextmanager
+def fake_mesh(shape, axes, device_type: str = "cpu"):
+    """A ``DeviceMesh`` of ``shape`` over torch's fake process group of
+    ``prod(shape)`` ranks, as rank 0, in this one process: the counterpart
+    of the JAX dry run's ``--xla_force_host_platform_device_count``.  A
+    collective on it moves nothing and returns an empty result of the
+    right shape, so a step on meta tensors laid out over it runs as rank
+    0 would, each op on rank 0's shards.  The group is made on entry and
+    destroyed on exit; it raises if a group is already initialised."""
+    import torch.distributed as dist
+    # registers the "fake" backend (made only here, never at import)
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_mesh: a process group is already "
+                           "initialised")
+    n = math.prod(shape)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield make_mesh(shape, axes, device_type)
+    finally:
+        dist.destroy_process_group()

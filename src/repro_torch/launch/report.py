@@ -3,8 +3,9 @@
   PYTHONPATH=src python -m repro_torch.launch.report build/dryrun.json
 
 The port's copy of ``repro.launch.report``.  A null term renders as "not
-counted" (the collective term on a mesh) or "not measured" (the temporary
-memory of a meta run); a cell that does not fit is rendered with its
+counted" (the collective term of a JSON written before the partitioned
+step counted it) or "not measured" (the temporary memory of a meta run); a
+cell that does not fit is rendered with its
 costs, and one that needs the device with the op that stopped it.  A JSON
 of the JAX package's dry run renders as the JAX package renders it.
 """

@@ -7,13 +7,23 @@ limit) are kept here and nowhere else in the port:
     the flash kernels' operations bound),
   * 67 TFLOP/s f32 on the CUDA cores, used for every scalar operation
     outside the tensor cores (the tree kernels, the ``yadt`` cell),
-  * 3.35 TB/s and 80 GB of HBM3.
+  * 3.35 TB/s and 80 GB of HBM3,
+  * the collective rate of one card (:func:`collective_rate`): NVLink 4 at
+    450 GB/s each way (the data sheet's 900 GB/s bidirectional) on a mesh
+    of at most 8 cards, one NVLink domain; on a larger mesh the 50 GB/s of
+    one 400 Gb/s NIC a card (the DGX H100 layout: eight cards, eight
+    ConnectX-7 NICs).  One rate a mesh, the JAX package's simplification
+    (its one ICI rate).
 
 A step's costs come from running it (:func:`count_costs`), on meta
-tensors (shapes only, nothing allocated; runs on the CPU) or on the card:
+tensors (shapes only, nothing allocated; runs on the CPU) or on the card,
+on plain tensors (one card) or on DTensors over a ``DeviceMesh`` (a
+partitioned step: the counts are then one device's, rank 0's):
 
-  * ``device_flops``: ``torch.utils.flop_counter.FlopCounterMode`` over the
-    step, the hand-written kernels counted by their own formulas
+  * ``device_flops``: ``torch.utils.flop_counter.FlopCounterMode``'s count
+    of the step (its formulas and decompositions, in a mode of this
+    module's that sees one device's ops), the hand-written kernels counted
+    by their own formulas
     (registered beside each kernel's custom op, from this module's
     ``*_flops`` / ``*_ops``);
   * ``device_bytes``: every op's tensor inputs read once and outputs
@@ -22,14 +32,20 @@ tensors (shapes only, nothing allocated; runs on the CPU) or on the card:
     "bytes accessed";
   * ``min_bytes``: the step's arguments read once and its outputs written
     once; an argument the step updates in place (the train state, the
-    decode cache) counts once, as read.
+    decode cache) counts once, as read;
+  * ``device_coll_bytes``: :func:`collective_bytes` of the collectives the
+    device issues (``_c10d_functional`` ops and DTensor's all-to-all, each
+    with its group's size), the JAX package's ring factors on each result.
+
+Under DTensor the counters see each rank's local ops (a mode that declines
+DTensor arguments sees the ops DTensor runs on the shards) and leave out
+the ops DTensor's sharding propagation runs on fake global-shape tensors
+to learn the output shapes.
 
 ``bound_s = max(device_flops / peak, min_bytes / bandwidth)``, with
 ``bound_by`` saying which.  ``t_memory`` keeps the JAX meaning (the
-program's bytes over the bandwidth).  The collective term is 0 on one card
-(no collectives) and None ("not counted") on a mesh of more than one: the
-port has no partitioned step, and the JAX ``collective_bytes`` parses XLA's
-partitioned HLO, which has no counterpart here.
+program's bytes over the bandwidth), ``t_collective`` is the collective
+bytes over the mesh's rate (0 on one card, which issues none).
 """
 
 from __future__ import annotations
@@ -46,12 +62,26 @@ HBM_BYTES_PER_S = 3.35e12
 HBM_BYTES = 80e9
 BF16_TENSOR_OPS_PER_S = 989e12
 FP32_OPS_PER_S = 67e12
+# one card's collective rate (one way): NVLink 4 inside a node of at most
+# 8 cards (data sheet: 900 GB/s bidirectional), else one 400 Gb/s NIC a
+# card (DGX H100: eight ConnectX-7 NICs for eight cards)
+NVLINK_BYTES_PER_S = 450e9
+NIC_BYTES_PER_S = 50e9
+NVLINK_DOMAIN = 8
 # the JAX module's names
 PEAK_FLOPS = BF16_TENSOR_OPS_PER_S
 HBM_BW = HBM_BYTES_PER_S
 # integer operations a traversal descent step: leaf test, unknown test,
 # threshold test, two clip bounds, child add
 OPS_PER_STEP = 6
+
+
+def collective_rate(n_devices: int) -> tuple[float, str]:
+    """(bytes/s, which link) a card moves collective bytes at on a mesh of
+    ``n_devices``."""
+    if n_devices <= NVLINK_DOMAIN:
+        return NVLINK_BYTES_PER_S, "nvlink4"
+    return NIC_BYTES_PER_S, "nic_400g"
 
 
 def bound_ms(n_bytes: float, n_ops: float,
@@ -213,8 +243,110 @@ def _caller() -> str:
     return "?"
 
 
+def _dtensor_class():
+    """``DTensor``, or None where torch has no ``torch.distributed``."""
+    import torch
+    if not torch.distributed.is_available():
+        return None
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
+def _local(t):
+    """A DTensor's local shard (what one device holds); any other tensor
+    itself."""
+    cls = _dtensor_class()
+    return t.to_local() if cls is not None and isinstance(t, cls) else t
+
+
 def _nbytes(t) -> int:
+    t = _local(t)
     return t.numel() * t.element_size()
+
+
+def _decliner():
+    """A test of an op's argument types: True for an op on DTensors, which
+    a counting mode declines (returns NotImplemented) so that it sees the
+    ops DTensor then runs on the shards, the collectives among them."""
+    cls = _dtensor_class()
+    if cls is None:
+        return lambda types: False
+    return lambda types: any(issubclass(t, cls) for t in types)
+
+
+def _propagation(args, out) -> bool:
+    """True for an op DTensor's sharding propagation runs on fake
+    global-shape tensors to learn an output's shape: no device runs it."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return any(isinstance(t, FakeTensor)
+               for t in _op_tensors((args, out)))
+
+
+# --------------------------------------------------------------------------
+# collective bytes: the JAX package's ring model
+# --------------------------------------------------------------------------
+
+# The collectives' op names (``_c10d_functional``, DTensor's all-to-all)
+# by the JAX package's (XLA's) names.
+_COLLECTIVES = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_reduce": "all-reduce",
+    "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_reduce_coalesced_": "all-reduce",
+    "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",
+}
+# What a collective moves per device over a ring of g, from its result
+# (``repro.launch.roofline.collective_bytes``).
+RING = {"all-gather": lambda size, g: size * (g - 1) / g,
+        "all-reduce": lambda size, g: 2 * size * (g - 1) / g,
+        "reduce-scatter": lambda size, g: size * (g - 1),
+        "all-to-all": lambda size, g: size * (g - 1) / g,
+        "collective-permute": lambda size, g: float(size)}
+
+
+def collective_op(func) -> str | None:
+    """The JAX name of a collective op, None for any other op; raises on
+    a communicating op the count does not know."""
+    ns, _, name = func._schema.name.partition("::")
+    if ns not in ("_c10d_functional", "c10d_functional", "_dtensor"):
+        return None
+    if name in _COLLECTIVES:
+        return _COLLECTIVES[name]
+    if name in ("wait_tensor", "_wrap_tensor_autograd") or ns == "_dtensor":
+        return None
+    raise NotImplementedError(f"collective_bytes: no ring model for "
+                              f"{func._schema.name}")
+
+
+def _group_size(func, args, kwargs) -> int:
+    """The size of the op's process group, from its ``group_name``."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    names = [a.name for a in func._schema.arguments]
+    bound = dict(zip(names, args)) | kwargs
+    return _resolve_process_group(bound["group_name"]).size()
+
+
+def collective_bytes(issued: list[tuple[str, int, int]]
+                     ) -> tuple[float, dict[str, float]]:
+    """Per-device communicated bytes of ``issued`` collectives, each
+    ``(JAX op name, result bytes, group size)``: the total and the bytes by
+    op (the counterpart of the JAX function, which reads the same triples
+    out of the partitioned HLO).  A group of one moves nothing."""
+    total = 0.0
+    by_op: dict[str, float] = {}
+    for op, size, g in issued:
+        if g <= 1:
+            continue
+        vol = RING[op](size, g)
+        total += vol
+        by_op[op] = by_op.get(op, 0.0) + vol
+    return total, by_op
 
 
 def _op_tensors(x) -> list:
@@ -232,15 +364,21 @@ def _make_byte_counter():
     class ByteCounter(TorchDispatchMode):
         """Adds each op's tensor inputs and outputs (a kernel's custom op:
         its formula); views and ``empty`` allocations add nothing.  A meta
-        tensor asked for its data raises :class:`NeedsDevice`."""
+        tensor asked for its data raises :class:`NeedsDevice`.  Each
+        collective is also kept in ``issued`` (its JAX name, its result's
+        bytes and its group's size)."""
 
         def __init__(self):
             super().__init__()
             self.bytes = 0
             self.ops = 0
+            self.issued: list[tuple[str, int, int]] = []
+            self.declines = _decliner()
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
+            if self.declines(types):
+                return NotImplemented
             try:
                 out = func(*args, **kwargs)
             except Exception as e:
@@ -249,7 +387,13 @@ def _make_byte_counter():
                     raise NeedsDevice(func._schema.name, _caller(),
                                       str(e).splitlines()[0]) from e
                 raise
+            if _propagation(args, out):
+                return out
             name = func._schema.name
+            coll = collective_op(func)
+            if coll is not None:
+                self.issued.append((coll, sum(map(_nbytes, _op_tensors(out))),
+                                    _group_size(func, args, kwargs)))
             self.ops += 1
             if name in KERNEL_BYTES:
                 self.bytes += KERNEL_BYTES[name](args)
@@ -260,6 +404,60 @@ def _make_byte_counter():
             return out
 
     return ByteCounter()
+
+
+# the shape queries _FlopCounterMode lets through uncounted
+_SHAPE_QUERIES = ("sym_is_contiguous.default", "is_contiguous.default",
+                  "is_contiguous.memory_format",
+                  "is_strides_like_format.default",
+                  "is_non_overlapping_and_dense.default", "size.default",
+                  "sym_size.default", "stride.default", "sym_stride.default",
+                  "storage_offset.default", "sym_storage_offset.default",
+                  "numel.default", "sym_numel.default", "dim.default")
+
+
+def _make_flop_counter():
+    import torch
+    from torch.utils import flop_counter
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+    skip = {getattr(getattr(aten, n.split(".")[0]), n.split(".")[1])
+            for n in _SHAPE_QUERIES if hasattr(aten, n.split(".")[0])}
+    skip.add(torch.ops.prim.layout.default)
+
+    class FlopCounter(TorchDispatchMode):
+        """``torch.utils.flop_counter.FlopCounterMode``'s count (its
+        formulas, the kernels' registered ones among them, and its
+        decomposition of an op it has no formula for), of the ops one
+        device runs: it declines DTensor arguments, so that it counts the
+        local ops on the shards, and leaves out sharding propagation."""
+
+        def __init__(self):
+            super().__init__()
+            self.flops = 0
+            self.registry = dict(flop_counter.flop_registry)
+            self.declines = _decliner()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if (func in skip or self.declines(types)
+                    or isinstance(func, torch._ops.HigherOrderOperator)):
+                return NotImplemented
+            if (func not in self.registry
+                    and func is not torch.ops.prim.device.default):
+                with self:
+                    r = func.decompose(*args, **kwargs)
+                    if r is not NotImplemented:
+                        return r
+            out = func(*args, **kwargs)
+            packet = func._overloadpacket
+            if packet in self.registry and not _propagation(args, out):
+                self.flops += self.registry[packet](*args, **kwargs,
+                                                    out_val=out)
+            return out
+
+    return FlopCounter()
 
 
 def tree_tensors(tree) -> list:
@@ -293,12 +491,16 @@ def tree_tensors(tree) -> list:
 
 @dataclasses.dataclass
 class Costs:
-    """What :func:`count_costs` counted for one call (global, one device)."""
+    """What :func:`count_costs` counted for one call, on one device (a
+    DTensor argument or output counts its local shard)."""
     device_flops: float
     device_bytes: float
     arg_bytes: float
     out_bytes: float          # outputs that are not arguments
     n_ops: int
+    coll_bytes: float = 0.0   # collective_bytes of the issued collectives
+    coll_by_op: dict = dataclasses.field(default_factory=dict)
+    n_collectives: int = 0
 
     @property
     def min_bytes(self) -> float:
@@ -315,43 +517,26 @@ class _Repeat:
 
     @contextlib.contextmanager
     def repeat(self, n: int):
-        f0, b0, o0 = (self.flops.get_total_flops(), self.counter.bytes,
-                      self.counter.ops)
+        f0, b0, o0, c0 = (self.flops.flops, self.counter.bytes,
+                          self.counter.ops, len(self.counter.issued))
         yield
         extra = n - 1
-        self.flops.flop_counts["Global"]["repeated"] += extra * (
-            self.flops.get_total_flops() - f0)
+        self.flops.flops += extra * (self.flops.flops - f0)
         self.counter.bytes += extra * (self.counter.bytes - b0)
         self.counter.ops += extra * (self.counter.ops - o0)
-
-
-class _GlobalOnly:
-    """In place of ``FlopCounterMode``'s module tracker: every count goes
-    to "Global" only.  The tracker hooks the autograd inputs and outputs of
-    every module until the mode exits; on the card that kept gemma3_4b's
-    train step (B 2) 12 GB above its 65.5 GB peak, out of memory."""
-    parents = {"Global"}
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        return None
+        self.counter.issued += extra * self.counter.issued[c0:]
 
 
 def count_costs(fn: Callable, *args, **kwargs) -> tuple[Any, Costs]:
     """Run ``fn(*args, **kwargs)`` under the flop counter and the byte
     counter; returns its output and the :class:`Costs`.  Raises
     :class:`NeedsDevice` where a meta argument's data was needed."""
-    from torch.utils.flop_counter import FlopCounterMode
-
     import repro_torch.kernels.ops  # noqa: F401  (the kernels' formulas)
     from repro_torch.utils import scan as uscan
 
     counter = _make_byte_counter()
-    flop_counter = FlopCounterMode(display=False)
-    flop_counter.mod_tracker = _GlobalOnly()
-    with flop_counter as flops, counter:
+    flops = _make_flop_counter()
+    with flops, counter:
         uscan.COUNTERS.append(_Repeat(flops, counter))
         try:
             out = fn(*args, **kwargs)
@@ -360,11 +545,13 @@ def count_costs(fn: Callable, *args, **kwargs) -> tuple[Any, Costs]:
     arg_ts = tree_tensors(args)
     arg_ids = {id(t) for t in arg_ts}
     out_ts = [t for t in tree_tensors(out) if id(t) not in arg_ids]
-    return out, Costs(device_flops=float(flops.get_total_flops()),
+    coll, by_op = collective_bytes(counter.issued)
+    return out, Costs(device_flops=float(flops.flops),
                       device_bytes=float(counter.bytes),
                       arg_bytes=float(sum(map(_nbytes, arg_ts))),
                       out_bytes=float(sum(map(_nbytes, out_ts))),
-                      n_ops=counter.ops)
+                      n_ops=counter.ops, coll_bytes=coll, coll_by_op=by_op,
+                      n_collectives=len(counter.issued))
 
 
 # --------------------------------------------------------------------------
@@ -379,13 +566,15 @@ class Roofline:
     mesh: str
     device_flops: float
     device_bytes: float
-    device_coll_bytes: float | None   # None: not counted (mesh > 1)
+    device_coll_bytes: float
     coll_by_op: dict[str, float]
     peak_mem_bytes: float | None      # None: not measured
     arg_bytes: float
     model_flops: float        # 6*N*D (dense) / 6*N_active*D (MoE), global
     min_bytes: float = 0.0
     peak_flops: float = PEAK_FLOPS
+    coll_bw: float = NVLINK_BYTES_PER_S
+    coll_link: str = "nvlink4"
 
     @property
     def t_compute(self) -> float:
@@ -396,25 +585,18 @@ class Roofline:
         return self.device_bytes / HBM_BW
 
     @property
-    def t_collective(self) -> float | None:
-        """0 on one card (no collectives); None on a mesh (not counted)."""
-        if self.device_coll_bytes is None:
-            return None
-        if self.device_coll_bytes:
-            raise ValueError("the port counts no collective bytes")
-        return 0.0
+    def t_collective(self) -> float:
+        return self.device_coll_bytes / self.coll_bw
 
     @property
     def bottleneck(self) -> str:
         terms = {"compute": self.t_compute, "memory": self.t_memory,
                  "collective": self.t_collective}
-        terms = {k: v for k, v in terms.items() if v is not None}
         return max(terms, key=terms.get)
 
     @property
     def roofline_seconds(self) -> float:
-        return max(v for v in (self.t_compute, self.t_memory,
-                               self.t_collective) if v is not None)
+        return max(self.t_compute, self.t_memory, self.t_collective)
 
     @property
     def t_min_bytes(self) -> float:
@@ -448,7 +630,8 @@ class Roofline:
             useful_flops_ratio=self.useful_flops_ratio(n_devices),
             min_bytes=self.min_bytes, t_min_bytes=self.t_min_bytes,
             peak_flops=self.peak_flops, bound_s=self.bound_s,
-            bound_by=self.bound_by,
+            bound_by=self.bound_by, coll_bw=self.coll_bw,
+            coll_link=self.coll_link,
         )
 
 
@@ -474,17 +657,19 @@ def analyze(costs: Costs, *, arch: str, shape: str, mesh_desc: str,
             n_devices: int, peak_mem_bytes: float | None = None,
             arg_bytes: float | None = None, batch: int | None = None
             ) -> Roofline:
-    """The :class:`Roofline` of a counted step, per device: on a mesh of
-    ``n_devices`` the global counts divided evenly.  ``arg_bytes``: the
-    arguments a device holds (default: all of them, over ``n_devices``)."""
-    per = 1.0 / n_devices
+    """The :class:`Roofline` of one device of a mesh of ``n_devices``,
+    from a count of that device's step (on one card the step; on a mesh
+    the partitioned step, each count the device's own), its collectives
+    over the mesh's rate (:func:`collective_rate`).  ``arg_bytes``: the
+    arguments a device holds (default: the counted ones)."""
+    bw, link = collective_rate(n_devices)
     return Roofline(
         arch=arch, shape=shape, mesh=mesh_desc,
-        device_flops=costs.device_flops * per,
-        device_bytes=costs.device_bytes * per,
-        device_coll_bytes=0.0 if n_devices == 1 else None, coll_by_op={},
+        device_flops=costs.device_flops, device_bytes=costs.device_bytes,
+        device_coll_bytes=costs.coll_bytes, coll_by_op=dict(costs.coll_by_op),
         peak_mem_bytes=peak_mem_bytes,
-        arg_bytes=costs.arg_bytes * per if arg_bytes is None else arg_bytes,
+        arg_bytes=costs.arg_bytes if arg_bytes is None else arg_bytes,
         model_flops=model_flops_for(arch, shape, batch),
-        min_bytes=costs.min_bytes * per,
-        peak_flops=FP32_OPS_PER_S if arch == "yadt" else PEAK_FLOPS)
+        min_bytes=costs.min_bytes,
+        peak_flops=FP32_OPS_PER_S if arch == "yadt" else PEAK_FLOPS,
+        coll_bw=bw, coll_link=link)

@@ -284,20 +284,44 @@ def _copy_state(state):
 # --------------------------------------------------------------------------
 
 
+def is_device_mesh(mesh) -> bool:
+    return hasattr(mesh, "mesh_dim_names") and hasattr(mesh, "get_group")
+
+
 def run_cell_step(cell: Cell, mesh=None, *, unroll: bool = False,
                   count: bool = False, **knobs):
     """The cell's step on its args under the mesh's activation context and
     the layout ``knobs`` (the JAX ``lower_cell``).  Returns its output,
-    or with ``count`` (output, ``roofline.Costs``)."""
+    or with ``count`` (output, ``roofline.Costs``).
+
+    On a ``DeviceMesh`` the step is partitioned, the counterpart of
+    ``jax.jit(in_shardings=, out_shardings=)``: the args are laid out as
+    DTensors by ``cell.in_shardings`` (``partitioning.distribute``), once:
+    the cell keeps them, so that it then lives on the mesh and a step that
+    updates its state in place carries it to the next call; the step runs
+    on them (plain tensors it makes are taken as replicated) and its
+    outputs are laid out by ``cell.out_shardings``.  The count is then the
+    device's (rank 0's on a fake mesh).  On an ``AbstractMesh`` or one
+    device the step runs as it is."""
     from repro_torch.sharding import act
     from repro_torch.utils import scan as uscan
 
     mesh = one_device_mesh() if mesh is None else mesh
     ctx = uscan.unrolled() if unroll else contextlib.nullcontext()
+    fn, args = cell.step_fn, cell.args
+    if is_device_mesh(mesh):
+        from torch.distributed.tensor.experimental import (
+            implicit_replication)
+        args = cell.args = part.distribute(args, cell.in_shardings, mesh)
+
+        def fn(*a):
+            with implicit_replication():
+                out = cell.step_fn(*a)
+            return part.distribute(out, cell.out_shardings, mesh)
     with act.from_mesh(mesh, **knobs), ctx:
         if count:
-            return roofline.count_costs(cell.step_fn, *cell.args)
-        return cell.step_fn(*cell.args)
+            return roofline.count_costs(fn, *args)
+        return fn(*args)
 
 
 def make_analysis_cells(arch: str, shape_name: str, mesh=None, *,
@@ -319,13 +343,6 @@ def make_analysis_cells(arch: str, shape_name: str, mesh=None, *,
 # --------------------------------------------------------------------------
 
 
-def _is_spec(s) -> bool:
-    return isinstance(s, tuple) and all(
-        e is None or isinstance(e, str)
-        or (isinstance(e, tuple) and all(isinstance(a, str) for a in e))
-        for e in s)
-
-
 def arg_specs(cell: Cell) -> list[tuple[torch.Tensor, tuple]]:
     """(tensor, spec) of every distinct argument tensor of the cell; a
     container whose spec is one spec (``()``: replicated) gives it to every
@@ -335,7 +352,7 @@ def arg_specs(cell: Cell) -> list[tuple[torch.Tensor, tuple]]:
     def walk(arg, spec):
         if isinstance(arg, torch.Tensor):
             out.setdefault(id(arg), (arg, spec))
-        elif _is_spec(spec) and not isinstance(arg, (list, tuple)):
+        elif part.is_spec(spec) and not isinstance(arg, (list, tuple)):
             for t in roofline.tree_tensors(arg):
                 out.setdefault(id(t), (t, spec))
         elif isinstance(arg, nn.Module):

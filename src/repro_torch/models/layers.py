@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ops, ref
+from repro_torch.sharding.act import shard_batch, shard_batch_tp_last
 
 Params = Mapping[str, torch.Tensor]
 IMPLS = ("cuda", "torch")
@@ -165,9 +166,12 @@ def _softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
 
 def qkv(p: Params, s: AttnSpec, x: torch.Tensor, positions: torch.Tensor):
     b, sq, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, sq, s.n_heads, s.head_dim)
-    k = (x @ p["wk"]).reshape(b, sq, s.n_kv_heads, s.head_dim)
-    v = (x @ p["wv"]).reshape(b, sq, s.n_kv_heads, s.head_dim)
+    # pinned batch-only before the head split (the JAX package pins the
+    # same spec after it): a DTensor cannot view a column-sharded
+    # projection as heads that do not divide the model axis
+    q = shard_batch(x @ p["wq"]).reshape(b, sq, s.n_heads, s.head_dim)
+    k = shard_batch(x @ p["wk"]).reshape(b, sq, s.n_kv_heads, s.head_dim)
+    v = shard_batch(x @ p["wv"]).reshape(b, sq, s.n_kv_heads, s.head_dim)
     if s.use_rope:
         q = rope(q, positions, s.rope_theta)
         k = rope(k, positions, s.rope_theta)
@@ -276,7 +280,7 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype) -> dict:
 
 
 def mlp_apply(p: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    a = x @ p["w_gate"]
+    a = shard_batch_tp_last(x @ p["w_gate"])  # (B, S, F)
     if act == "silu":
         a = torch.nn.functional.silu(a.float()).to(x.dtype)
     elif act == "gelu":

@@ -20,6 +20,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import frontends, kvcache, layers, transformer
+from repro_torch.sharding.act import shard_batch, shard_batch_tp_last
 from repro_torch.utils import scan as uscan
 
 
@@ -30,9 +31,12 @@ CE_CHUNK = 512
 def _chunk_loss(xi: torch.Tensor, li: torch.Tensor, unembed_fn: Callable
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Summed cross-entropy and token count of one chunk (B, c, D)."""
-    logits = unembed_fn(xi).float()                          # (B, c, V)
+    logits = shard_batch_tp_last(unembed_fn(xi).float())     # (B, c, V)
     lse = torch.logsumexp(logits, -1)
-    gold = logits.gather(-1, torch.clamp_min(li, 0)[..., None].long())[..., 0]
+    # a gather from vocab-sharded logits is a masked partial sum under
+    # DTensor, summed here while its mask still has the gather's shape
+    gold = shard_batch(logits.gather(
+        -1, torch.clamp_min(li, 0)[..., None].long()))[..., 0]
     mask = (li != IGNORE_ID).float()
     return ((lse - gold) * mask).sum(), mask.sum()
 
@@ -128,7 +132,7 @@ def build_model(cfg: ModelConfig, *, impl: str | None = None) -> Model:
         max_seq = max_seq or s
         x, entries = params(tokens, frontend_embeds, capture_cache=True,
                             impl=impl)
-        cache = kvcache.init_cache(cfg, b, max_seq, params.device)
+        cache = kvcache.init_cache_laid_out(cfg, b, max_seq, params)
         cache = kvcache.prefill_to_cache(cfg, entries, cache, s)
         logits = params.unembed(x[:, -1:])[:, 0]
         return logits, cache

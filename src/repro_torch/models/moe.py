@@ -14,8 +14,10 @@ Both top-k are a stable descending sort: ``jax.lax.top_k`` takes the lowest
 index first among equal values and ``torch.topk`` promises no order.  The
 order decides which tokens an expert keeps at overflow: every llama4_scout
 gate is exactly 1.0 (top-1, renormalised), and the unrouted tokens' zero
-scores tie too.  The JAX package's ``shard_experts`` is the identity on one
-device and has no counterpart here.
+scores tie too.  The expert-major tensors are pinned by
+``sharding.act.shard_experts`` where the JAX package pins them (the
+identity on one device; on a mesh, E over TP and with ``moe2d`` the
+capacity axis over DP).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.sharding.act import replicate, shard_experts
 
 Params = Mapping[str, Any]
 
@@ -82,15 +85,19 @@ def route(p: Params, xf: torch.Tensor, s: MoESpec):
     each token's top-k experts (T, k), and each expert's top-C gate scores
     and token indices (E, C)."""
     logits = xf.float() @ p["router"]                            # (T, E)
-    probs = torch.softmax(logits, -1)
+    # replicated under DTensor: the routing's sorts and gathers need whole
+    # rows and columns (a gather from an E-split row is a masked partial
+    # that DTensor cannot use twice)
+    probs = replicate(torch.softmax(logits, -1))
     top_p, top_e = top_k(probs, s.experts_per_token)             # (T, k)
     # combine weight of (token, expert): the top-k gate prob, renormalised
     gate = torch.zeros(probs.shape, dtype=torch.float32,
                        device=xf.device).scatter(
         1, top_e, top_p / top_p.sum(-1, keepdim=True))
-    # per-expert top-C token selection on the gate score
+    # per-expert top-C token selection on the gate score (its gradient,
+    # E-split by the experts' layout, replicated back into the routing)
     sel_score, sel_idx = top_k(gate.T, capacity(xf.shape[0], s))
-    return probs, top_e, sel_score, sel_idx
+    return probs, top_e, replicate(sel_score), sel_idx
 
 
 def moe_apply(p: Params, x: torch.Tensor, s: MoESpec
@@ -106,23 +113,26 @@ def moe_apply(p: Params, x: torch.Tensor, s: MoESpec
     live = sel_score > 0.0                                       # (E, C)
     flat = sel_idx.reshape(-1)
     xg = xf[flat].reshape(s.n_experts, -1, d)
-    xg = torch.where(live[..., None], xg, 0).to(dt)
+    xg = shard_experts(torch.where(live[..., None], xg, 0).to(dt))
 
-    a = torch.bmm(xg, p["w_gate"])
+    a = shard_experts(torch.bmm(xg, p["w_gate"]))
     if s.act == "silu":
         a = F.silu(a.float()).to(dt)
     else:                                  # jax.nn.gelu: the tanh form
         a = F.gelu(a.float(), approximate="tanh").to(dt)
     h = a * torch.bmm(xg, p["w_up"])
-    y = torch.bmm(h, p["w_down"])                                # (E, C, D)
+    y = shard_experts(torch.bmm(h, p["w_down"]))                 # (E, C, D)
 
     y = y.float() * sel_score[..., None] * live[..., None]
     # A token's adds are at most two non-zero values (top-1 or top-2 in
     # every config) and exact zeros (its unrouted and dropped slots), and
     # IEEE addition of two values commutes, so the sum does not depend on
     # the order the device adds in.
+    # replicated under DTensor: no index_add strategy scatters E-sharded
+    # rows into token rows
     out = torch.zeros((t, d), dtype=torch.float32,
-                      device=x.device).index_add(0, flat, y.reshape(-1, d))
+                      device=x.device).index_add(
+        0, replicate(flat), replicate(y.reshape(-1, d)))
     if s.n_shared_experts:
         out = out + layers.mlp_apply(p["shared"], xf, s.act).float()
 

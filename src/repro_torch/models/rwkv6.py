@@ -29,7 +29,9 @@ from typing import Any, Mapping
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels._dtensor import is_dtensor
 from repro_torch.models import layers
+from repro_torch.sharding.act import shard_batch
 from repro_torch.utils import scan as uscan
 
 Params = Mapping[str, torch.Tensor]
@@ -97,6 +99,11 @@ def _branches(p: Params, s: RWKVSpec, x: torch.Tensor, xs: torch.Tensor):
     ww = p["w0"] + torch.tanh(mix[3] @ p["wa"].float()) @ p["wb"]
     w = torch.exp(-torch.exp(ww))                                # in (0, 1)
     g = F.silu(mix[4].to(dt) @ p["wg"])
+    # batch-only before the callers view D as heads (and the heads back
+    # as D): a DTensor cannot view a TP-split D as heads that do not
+    # divide the mesh axis; g likewise, for the product that gates the
+    # output (see channel_mix)
+    r, k, v, w, g = (shard_batch(t) for t in (r, k, v, w, g))
     return r, k, v, w, g
 
 
@@ -107,23 +114,12 @@ def _group_norm(out: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return (out - mu) * torch.rsqrt(var + 1e-5) * scale
 
 
-def time_mix(p: Params, s: RWKVSpec, x: torch.Tensor, *,
-             chunk: int = CHUNK, return_state: bool = False):
-    """Full-sequence chunked evaluation (training, prefill).
-
-    With ``return_state`` also returns (final state, last input) to seed
-    the O(1) decode path.
-    """
-    b, seq, d = x.shape
-    h, hd = s.n_heads, s.head_dim
-    chunk = min(chunk, seq)
+def _wkv(r, k, v, w, u, *, h: int, chunk: int):
+    """The chunked WKV recurrence of ``time_mix``: (out (B, S, H, hd),
+    the state at the sequence's end)."""
+    b, seq, d = r.shape
+    hd = d // h
     n_chunks = seq // chunk
-    if n_chunks * chunk != seq:
-        raise ValueError(f"rwkv time_mix: a sequence of {seq} tokens, longer "
-                         f"than the {chunk}-token chunk, must be a multiple "
-                         f"of it")
-    r, k, v, w, g = _branches(p, s, x, _shift(x))
-    u = p["u"].reshape(h, hd)
     shape = (b, n_chunks, chunk, h, hd)
     rc, kc, vc, wc = (t.reshape(shape).permute(1, 0, 3, 2, 4)
                       for t in (r, k, v, w))                     # (N,B,H,L,hd)
@@ -136,7 +132,7 @@ def time_mix(p: Params, s: RWKVSpec, x: torch.Tensor, *,
     cum = torch.clamp_min(cum, -30.0)
     ct = cum - logw                                              # cum_{t-1}
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                device=x.device), diagonal=-1)
+                                device=r.device), diagonal=-1)
 
     def scan_chunk(state, inp):
         rc_, kc_, vc_, cum_, ct_ = inp
@@ -157,14 +153,61 @@ def time_mix(p: Params, s: RWKVSpec, x: torch.Tensor, *,
             "bhsd,bhsv->bhdv", kc_ * torch.exp(total - cum_), vc_)
         return state, out
 
-    s0 = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=x.device)
+    s0 = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=r.device)
     state, outs = uscan.scan(scan_chunk, s0, (rc, kc, vc, cum, ct))
-    out = outs.permute(1, 0, 3, 2, 4).reshape(b, seq, h, hd)
+    return outs.permute(1, 0, 3, 2, 4).reshape(b, seq, h, hd), state
+
+
+def _on_rows(r, k, v, w, u, *, h: int, chunk: int):
+    """:func:`_wkv` of DTensor rows (sharded on the batch only) on each
+    rank's own rows, as GSPMD keeps a per-row recurrence local (DTensor
+    cannot carry the chunk loop's views and products through every
+    layout): ``u``'s gradient a partial sum over the ranks that split the
+    rows; out and state laid out as the rows."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh, rows = r.device_mesh, r.placements
+    local = [t.redistribute(mesh, rows).to_local() for t in (r, k, v, w)]
+    u_l = u.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Partial() if p.is_shard() else Replicate()
+                         for p in rows])
+    out, state = _wkv(*local, u_l, h=h, chunk=chunk)
+    b, seq, d = r.shape
+
+    def laid(t, shape):
+        return DTensor.from_local(t, mesh, rows, run_check=False,
+                                  shape=shape,
+                                  stride=torch.empty(shape, device="meta")
+                                  .stride())
+
+    return (laid(out, (b, seq, h, d // h)),
+            laid(state, (b, h, d // h, d // h)))
+
+
+def time_mix(p: Params, s: RWKVSpec, x: torch.Tensor, *,
+             chunk: int = CHUNK, return_state: bool = False):
+    """Full-sequence chunked evaluation (training, prefill).
+
+    With ``return_state`` also returns (final state, last input) to seed
+    the O(1) decode path.
+    """
+    b, seq, d = x.shape
+    h, hd = s.n_heads, s.head_dim
+    chunk = min(chunk, seq)
+    n_chunks = seq // chunk
+    if n_chunks * chunk != seq:
+        raise ValueError(f"rwkv time_mix: a sequence of {seq} tokens, longer "
+                         f"than the {chunk}-token chunk, must be a multiple "
+                         f"of it")
+    r, k, v, w, g = _branches(p, s, x, _shift(x))
+    u = p["u"].reshape(h, hd)
+    wkv = _on_rows if is_dtensor(r) else _wkv
+    out, state = wkv(r, k, v, w, u, h=h, chunk=chunk)
 
     # per-head groupnorm, then the output gate and projection
-    out = _group_norm(out, p["ln_out_scale"])
+    out = shard_batch(_group_norm(out, p["ln_out_scale"]))
     out = out.reshape(b, seq, d).to(layers.torch_dtype(s.dtype)) * g
-    out = out @ p["wo"]
+    out = shard_batch(out @ p["wo"])
     if return_state:
         return out, state, x[:, -1]
     return out
@@ -178,13 +221,15 @@ def time_mix_step(p: Params, s: RWKVSpec, x: torch.Tensor,
     h, hd = s.n_heads, s.head_dim
     r, k, v, w, g = _branches(p, s, x[:, None], x_prev[:, None])
     r, k, v, w = (t[:, 0].reshape(b, h, hd) for t in (r, k, v, w))
+    # batch-only, as r, k, v: the einsums below flatten (B, H)
+    state = shard_batch(state)
     u = p["u"].reshape(h, hd)
     kv = torch.einsum("bhd,bhv->bhdv", k, v)
     out = torch.einsum("bhd,bhdv->bhv", r, state + u[None, :, :, None] * kv)
     state = state * w[..., None] + kv
-    out = _group_norm(out, p["ln_out_scale"])
+    out = shard_batch(_group_norm(out, p["ln_out_scale"]))
     out = out.reshape(b, d).to(layers.torch_dtype(s.dtype)) * g[:, 0]
-    return out @ p["wo"], state, x
+    return shard_batch(out @ p["wo"]), state, x
 
 
 def channel_mix(p: Params, s: RWKVSpec, x: torch.Tensor,
@@ -196,4 +241,7 @@ def channel_mix(p: Params, s: RWKVSpec, x: torch.Tensor,
     xk = (xf * mu[0] + xs * (1 - mu[0])).to(dt)
     xr = (xf * mu[1] + xs * (1 - mu[1])).to(dt)
     k = torch.square(torch.relu(xk @ p["cm_k"]))
-    return torch.sigmoid(xr @ p["cm_r"]) * (k @ p["cm_v"])
+    # both factors batch-only: DTensor (as torch 2.11 lays it out) cannot
+    # multiply a partial sum by a batch-split factor
+    return (shard_batch(torch.sigmoid(xr @ p["cm_r"]))
+            * shard_batch(k @ p["cm_v"]))

@@ -32,8 +32,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.kernels._dtensor import is_dtensor
 from repro_torch.models import layers, moe, rglru, rwkv6
 from repro_torch.models.layers import AttnSpec
+from repro_torch.sharding.act import shard_batch, shard_kv_capture
 
 ATTN_KINDS = ("global", "local")
 BLOCK_KINDS = ATTN_KINDS + ("rwkv", "rglru")
@@ -128,13 +130,18 @@ class DecoderLayer(nn.Module):
             q, k, v = layers.qkv(self.attn, self.spec, h, positions)
             o = layers.blockwise_attention(q, k, v, spec=self.spec,
                                            q_offset=0, impl=impl)
-            x = x + (o.reshape(*o.shape[:2], -1) @ self.attn["wo"])
+            # pinned batch-only: the backward's gradient of the heads'
+            # view then arrives whole, where DTensor cannot view a
+            # TP-split row as heads that do not divide the mesh axis
+            x = x + (shard_batch(o.reshape(*o.shape[:2], -1))
+                     @ self.attn["wo"])
             if capture:
                 if self.kind == "local":
                     w = min(cfg.window, k.shape[1])
                     entry = {"k": k[:, -w:], "v": v[:, -w:]}
                 else:
-                    entry = {"k": k, "v": v}
+                    entry = {"k": shard_kv_capture(k),
+                             "v": shard_kv_capture(v)}
         elif self.kind == "rwkv":
             if capture:
                 o, state, x_last = rwkv6.time_mix(self.tm, self.spec, h,
@@ -178,6 +185,18 @@ def _mean_aux(cfg: ModelConfig, per_layer: list[dict]) -> dict:
     return {k: torch.stack([a[k] for a in auxes]).mean() for k in auxes[0]}
 
 
+def _vocab_split(w: torch.Tensor) -> torch.Tensor:
+    """An embedding table for a lookup: a DTensor keeps only its vocab
+    split, its D axis gathered first (the ZeRO-3 gather every parameter
+    takes): DTensor's lookup in a table sharded on both axes masks the
+    vocab with the wrong shard's indices.  Any other tensor as it is."""
+    if not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+    return w.redistribute(w.device_mesh, [
+        p if p == Shard(0) else Replicate() for p in w.placements])
+
+
 class Transformer(nn.Module):
     """Embedding, ``cfg.n_layers`` decoder layers, final norm, unembedding.
 
@@ -208,7 +227,7 @@ class Transformer(nn.Module):
         given (ignored for a config without frontend tokens)."""
         # F.embedding: its backward adds the rows' gradients without
         # atomics (an index's adds in a fixed order), so steps repeat bitwise
-        x = F.embedding(tokens.long(), self.embed)
+        x = shard_batch(F.embedding(tokens.long(), _vocab_split(self.embed)))
         if self.cfg.pos == "sinusoidal":
             pos = torch.arange(tokens.shape[1], device=tokens.device)
             x = x + layers.sinusoidal(pos, self.cfg.d_model)[None].to(x.dtype)
@@ -230,8 +249,14 @@ class Transformer(nn.Module):
         x = self.embed_tokens(tokens, frontend_embeds)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         entries = []
-        for layer in self.layers:
+        pat = len(self.cfg.block_pattern)
+        nc, _ = n_cycles(self.cfg)
+        for i, layer in enumerate(self.layers):
+            if i < nc * pat and i % pat == 0:
+                x = shard_batch(x)          # re-anchor DP at each cycle
             x, e, _ = layer(x, positions, capture=capture_cache, impl=impl)
+            if i < nc * pat and i % pat == pat - 1:
+                x = shard_batch(x)
             if capture_cache:
                 entries.append(e)
         x = layers.norm_apply(self.final_norm, x, self.cfg.norm)
@@ -240,10 +265,11 @@ class Transformer(nn.Module):
     def _cycle(self, x: torch.Tensor, positions: torch.Tensor, first: int,
                impl: str | None) -> tuple[torch.Tensor, list[dict]]:
         auxes = []
+        x = shard_batch(x)                  # re-anchor DP at each cycle
         for layer in self.layers[first:first + len(self.cfg.block_pattern)]:
             x, _, a = layer(x, positions, impl=impl)
             auxes.append(a)
-        return x, auxes
+        return shard_batch(x), auxes
 
     def forward_train(self, tokens: torch.Tensor,
                       frontend_embeds: torch.Tensor | None = None, *,

@@ -2,10 +2,19 @@
 
 The port of ``repro.sharding.act``.  The JAX package pins activations with
 ``with_sharding_constraint`` where XLA's propagation loses the batch axis;
-these helpers ask for the same spec for the same shape and knobs.  Here
-:func:`_constrain` redistributes a DTensor to the spec's placements over
-its own mesh and is the identity on a plain tensor, so on one device every
-helper returns its input: the port's models do not call them.
+these helpers ask for the same spec for the same shape and knobs, and the
+port's models call them where the JAX package's do (``layers.qkv`` and
+``mlp_apply``, ``transformer.embed_tokens``, the KV capture and the
+per-cycle re-anchor, the chunked CE's logits, the MoE's expert tensors,
+the frontier's histogram).  :func:`_constrain` redistributes a DTensor to
+the spec's placements over its own mesh (a partitioned step) and is the
+identity on a plain tensor, so on one device every helper returns its
+input and no count or result moves.
+
+A few more calls pin what DTensor, unlike GSPMD, cannot carry through an
+op: a projection before its view as heads, the attention output before
+``wo``, RWKV's branches, and the CE's gathered gold logit (``shard_batch``
+in each, listed in ``CHANGES.md``).
 
 The active mesh geometry is process-global, set by the launch layer
 (``launch.specs.run_cell_step``) via :func:`activation_sharding`; with no
@@ -58,7 +67,18 @@ def _constrain(x, spec: tuple):
         return x
     from repro_torch.sharding import partitioning as part
     return x.redistribute(x.device_mesh,
-                          part.to_placements(spec, x.device_mesh))
+                          part.to_placements(spec, x.device_mesh, x.shape))
+
+
+def replicate(x):
+    """A DTensor replicated on every mesh dim (GSPMD's replication of an
+    op it cannot partition); any other tensor as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh,
+                          [Replicate()] * x.device_mesh.ndim)
 
 
 def _dp_for(dim: int):
@@ -90,6 +110,12 @@ def shard_frontier_hist(x):
     if not (_STATE["enabled"] and _STATE["yadt_rs"]):
         return x
     return _constrain(x, (_tp_for(x.shape[0]), *([None] * (x.ndim - 1))))
+
+
+def active_cases_sharded() -> bool:
+    """Whether the compacted live cases stay with their rank's shard
+    (``yadt_compact``, the default; no context: yes)."""
+    return not _STATE["enabled"] or _STATE["yadt_compact"]
 
 
 def shard_active_cases(x):

@@ -209,12 +209,15 @@ def shard_shape(global_shape, spec: Spec, mesh) -> tuple[int, ...]:
     return tuple(out)
 
 
-def to_placements(spec: Spec, mesh) -> tuple:
+def to_placements(spec: Spec, mesh, shape=None) -> tuple:
     """The DTensor placements of ``spec``: for each mesh dim, in mesh
     order, ``Shard(d)`` if tensor dim ``d`` takes that axis, else
     ``Replicate()``.  A tensor dim over several axes must list them in mesh
     order (row-major, as ``PartitionSpec(("data", "model"))``), which is
-    how DTensor orders two shardings of one dim."""
+    how DTensor orders two shardings of one dim.  Given the tensor's
+    ``shape``, a dim of size 1 stays replicated (the rules shard it only
+    over axes of size 1, where it is whole either way, and DTensor cannot
+    view a sharded dim of size 1 away)."""
     from torch.distributed.tensor import Replicate, Shard
 
     names = list(mesh_sizes(mesh))
@@ -229,5 +232,124 @@ def to_placements(spec: Spec, mesh) -> tuple:
             if a in owner:
                 raise ValueError(f"spec {spec} uses axis {a!r} twice")
             owner[a] = d
-    return tuple(Shard(owner[a]) if a in owner else Replicate()
-                 for a in names)
+    return tuple(Shard(owner[a]) if a in owner and (
+        shape is None or shape[owner[a]] != 1) else Replicate()
+        for a in names)
+
+
+# --------------------------------------------------------------------------
+# laying a tree out as DTensors, and gathering it back
+# --------------------------------------------------------------------------
+
+
+def is_spec(s) -> bool:
+    """True for one spec (a tuple of axis names, tuples of names and
+    None), as opposed to a tree of specs."""
+    return isinstance(s, tuple) and all(
+        e is None or isinstance(e, str)
+        or (isinstance(e, tuple) and all(isinstance(a, str) for a in e))
+        for e in s)
+
+
+def distribute_tensor(t, spec: Spec, mesh):
+    """``t`` (the global tensor, the same on every rank) as a DTensor laid
+    out by ``spec`` over the ``DeviceMesh``: this rank's shard, cut
+    locally with no collective.  A meta tensor gives a meta shard of
+    :func:`shard_shape`'s size; a real one a view where the shard is the
+    whole tensor (a one-rank mesh copies nothing), else a contiguous copy
+    of the slice.  A DTensor is redistributed to ``spec``."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    placements = to_placements(spec, mesh, t.shape)
+    if isinstance(t, DTensor):
+        if tuple(t.placements) == placements:
+            return t
+        return t.redistribute(mesh, placements)
+    shape, offset = compute_local_shape_and_global_offset(
+        t.shape, mesh, placements)
+    if t.is_meta:
+        local = torch.empty(shape, dtype=t.dtype, device=t.device)
+    else:
+        local = t
+        for d, (o, n) in enumerate(zip(offset, shape)):
+            if n != t.shape[d]:
+                local = local.narrow(d, o, n)
+        local = local.contiguous()
+    out = DTensor.from_local(local, mesh, placements, run_check=False,
+                             shape=t.shape, stride=t.stride())
+    return out.requires_grad_(t.requires_grad) if t.is_leaf else out
+
+
+def distribute(tree, specs, mesh):
+    """``tree`` laid out as DTensors by ``specs`` (the same structure, or
+    one spec for every tensor of a subtree): the counterpart of placing a
+    ``jax.jit`` argument by its ``in_shardings``.  Tensors, dicts, lists,
+    tuples and dataclasses (the train and grow states) give new
+    containers; a module (a model's parameters, ``specs`` a mapping from
+    parameter names) is changed in place, each parameter replaced by a
+    parameter holding its DTensor, and returned.  Anything else (an int
+    step, None) passes through."""
+    import dataclasses
+
+    import torch
+    from torch import nn
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, torch.Tensor):
+        return distribute_tensor(tree, specs, mesh)
+    if isinstance(tree, nn.Module):
+        for name, p in list(tree.named_parameters()):
+            mod, _, leaf = name.rpartition(".")
+            owner = tree.get_submodule(mod) if mod else tree
+            spec = specs if is_spec(specs) else specs[name]
+            if not (isinstance(p, DTensor) and tuple(p.placements)
+                    == to_placements(spec, mesh, p.shape)):
+                owner._parameters[leaf] = nn.Parameter(
+                    distribute_tensor(p.detach(), spec, mesh),
+                    requires_grad=p.requires_grad)
+        return tree
+    if is_spec(specs) and isinstance(tree, (dict, list)):
+        specs = (type(tree)(dict.fromkeys(tree, specs))
+                 if isinstance(tree, dict) else [specs] * len(tree))
+    if isinstance(tree, dict):
+        return {k: distribute(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(distribute(v, s, mesh)
+                          for v, s in zip(tree, specs))
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: distribute(getattr(tree, f.name),
+                               specs if is_spec(specs)
+                               else getattr(specs, f.name), mesh)
+            for f in dataclasses.fields(tree) if f.init})
+    return tree
+
+
+def gather(tree):
+    """Every DTensor of ``tree`` as its full tensor (``full_tensor``: a
+    collective over its mesh), through the containers :func:`distribute`
+    takes; a module's parameters are returned as a {name: tensor} dict."""
+    import dataclasses
+
+    import torch
+    from torch import nn
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, DTensor):
+        return tree.full_tensor()
+    if isinstance(tree, torch.Tensor):
+        return tree
+    if isinstance(tree, nn.Module):
+        return {k: gather(p.detach()) for k, p in tree.named_parameters()}
+    if isinstance(tree, dict):
+        return {k: gather(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(gather(v) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: gather(getattr(tree, f.name))
+            for f in dataclasses.fields(tree) if f.init})
+    return tree

@@ -68,12 +68,22 @@ def global_norm(grads: Leaves) -> torch.Tensor:
         [torch.square(g.float()).sum() for g in grads.values()]).sum())
 
 
+def _like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient laid out as its parameter (a partial sum
+    reduce-scattered onto a ZeRO-3 shard); any other passes through."""
+    from repro_torch.kernels._dtensor import is_dtensor
+    if is_dtensor(g) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 @torch.no_grad()
 def adamw_update(grads: Leaves, m: Leaves, v: Leaves, params: Leaves,
                  step: int, cfg: AdamWConfig) -> dict:
     """One AdamW step at ``step`` (0-based): ``params``, ``m`` and ``v``
     are updated in place.  Returns the stats ``grad_norm`` (a 0-d f32
     tensor on the gradients' device) and ``lr``."""
+    grads = {k: _like(grads[k], p) for k, p in params.items()}
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp_min(gnorm, 1e-12),
                         max=1.0)

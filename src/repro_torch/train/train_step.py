@@ -19,6 +19,8 @@ from typing import Any, Callable, Mapping
 import torch
 from torch import nn
 
+from repro_torch.kernels._dtensor import is_dtensor
+from repro_torch.sharding.act import replicate
 from repro_torch.train import optimizer as opt
 from repro_torch.utils import scan as uscan
 
@@ -48,19 +50,32 @@ def init_state(params) -> TrainState:
     return TrainState(params=params, m=m, v=v, step=0)
 
 
+def _f32_zeros(p: torch.Tensor) -> torch.Tensor:
+    """An f32 accumulator of ``p``'s shape (of a DTensor: its layout)."""
+    if is_dtensor(p):
+        return torch.zeros_like(p, dtype=torch.float32)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
 def _split(batch: Mapping, n: int) -> list[dict]:
-    """``n`` microbatches of consecutive rows (the JAX reshape to
-    ``(n, B / n, ...)``)."""
-    out = []
-    for i in range(n):
-        mb = {}
-        for k, x in batch.items():
-            if x.shape[0] % n:
-                raise ValueError(f"batch of {x.shape[0]} rows does not split "
-                                 f"into {n} microbatches")
-            rows = x.shape[0] // n
-            mb[k] = x[i * rows:(i + 1) * rows]
-        out.append(mb)
+    """``n`` microbatches of consecutive rows: microbatch ``i`` holds the
+    batch's rows ``[i B / n, (i + 1) B / n)``, as the JAX package's reshape
+    to ``(n, B / n, ...)`` takes them.  A DTensor batch sharded over the
+    data axes holds rows of every microbatch on each rank, so it is
+    gathered once (the rows move between ranks, as under the JAX reshape
+    of a sharded batch) and each microbatch is laid out again as the batch
+    is (a local cut, no collective)."""
+    out: list[dict] = [{} for _ in range(n)]
+    for k, x in batch.items():
+        if x.shape[0] % n:
+            raise ValueError(f"batch of {x.shape[0]} rows does not split "
+                             f"into {n} microbatches")
+        rows = x.shape[0] // n
+        whole = replicate(x)
+        for i, mb in enumerate(out):
+            mb[k] = whole[i * rows:(i + 1) * rows]
+            if is_dtensor(x):
+                mb[k] = mb[k].redistribute(x.device_mesh, x.placements)
     return out
 
 
@@ -68,7 +83,10 @@ def make_train_step(loss_fn: Callable, cfg: opt.AdamWConfig, *,
                     grad_accum: int = 1) -> Callable:
     """``loss_fn(params, batch) -> (loss, metrics dict)``, with autograd on.
     Returns ``train_step(state, batch) -> (state, metrics)``: the metrics
-    of the loss (averaged over microbatches) and ``grad_norm``, ``lr``."""
+    of the loss (averaged over microbatches) and ``grad_norm``, ``lr``.
+    Its ``compute_grads(params, batch) -> (loss, metrics, {name: grad})``
+    is the step without the update (the f32 accumulators where
+    ``grad_accum`` > 1)."""
 
     def compute_grads(params, batch):
         leaves = named_params(params)
@@ -77,8 +95,7 @@ def make_train_step(loss_fn: Callable, cfg: opt.AdamWConfig, *,
             grads = torch.autograd.grad(loss, list(leaves.values()))
             metrics = {k: x.detach() for k, x in metrics.items()}
             return loss.detach(), metrics, dict(zip(leaves, grads))
-        acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for k, p in leaves.items()}
+        acc = {k: _f32_zeros(p) for k, p in leaves.items()}
         metrics_acc: dict[str, torch.Tensor] = {}
         mbs = _split(batch, grad_accum)
         # counting on meta tensors: one microbatch counted grad_accum times
@@ -107,4 +124,5 @@ def make_train_step(loss_fn: Callable, cfg: opt.AdamWConfig, *,
         state.step += 1
         return state, {**metrics, **stats}
 
+    train_step.compute_grads = compute_grads
     return train_step

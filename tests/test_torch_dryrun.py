@@ -1,6 +1,8 @@
 """The port's dry run on meta tensors, at reduced configs and shrunk shapes
 (tests/test_dryrun_small.py's cells), its report and the markdown
-injection against the JAX package's, and the hillclimb command."""
+injection against the JAX package's, and the hillclimb command.  A mesh
+run (its fake process group) goes to a subprocess of its own
+(``tests/_torch_mesh.py``)."""
 
 import json
 import re
@@ -9,6 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
+import _torch_mesh
 from repro.launch import report as jreport
 from repro.launch import update_experiments as jupdate
 from repro_torch.configs import base
@@ -44,10 +47,15 @@ def small(monkeypatch):
     return reduced
 
 
+@pytest.mark.timeout(300)
 @pytest.mark.parametrize("mesh", ["1", "16x16"])
 @pytest.mark.parametrize("arch,shape", CELLS)
 def test_small_cells_count_on_meta(small, arch, shape, mesh):
-    r = dryrun.run_cell(arch, shape, mesh=mesh, verbose=False)
+    if mesh == "1":
+        r = dryrun.run_cell(arch, shape, mesh=mesh, verbose=False)
+    else:
+        res = _torch_mesh.run("cell", arch, shape, mesh, timeout=300)
+        r, one = res["mesh"], res["one"]
     assert r["status"] == "ok" and r["device"] == "meta"
     assert r["device_flops"] > 0 and r["device_bytes"] > 0
     assert set(JAX_KEYS) <= set(r)
@@ -55,12 +63,16 @@ def test_small_cells_count_on_meta(small, arch, shape, mesh):
     assert r["bound_s"] == max(r["t_compute"], r["t_min_bytes"]) > 0
     if mesh == "1":
         assert r["t_collective"] == 0.0 and r["split"] is None
-        assert r["device_coll_bytes"] == 0.0
+        assert r["device_coll_bytes"] == 0.0 and r["coll_by_op"] == {}
     else:
-        assert r["t_collective"] is None and r["split"] == "even"
-        assert r["device_coll_bytes"] is None
-        one = dryrun.run_cell(arch, shape, verbose=False)
-        assert r["device_flops"] == one["device_flops"] / 256
+        # partitioned: one device's own counts, its collectives over the
+        # NICs of a 256-card mesh
+        assert r["split"] == "partitioned" and r["coll_link"] == "nic_400g"
+        assert r["device_coll_bytes"] > 0
+        assert r["device_coll_bytes"] == sum(r["coll_by_op"].values())
+        assert r["t_collective"] == r["device_coll_bytes"] / r["coll_bw"]
+        assert 0 < r["device_flops"] <= one["device_flops"]
+        assert r["device_flops"] != one["device_flops"] / 256
         assert r["mem_args_gb"] < one["mem_args_gb"]
 
 
@@ -186,17 +198,18 @@ def test_yadt_cell_needs_the_device_on_meta():
     assert r["batch"] == 10_000_384 and r["mem_args_gb"] > 0.4
 
 
-def test_dryrun_main_writes_the_json(small, tmp_path, capsys):
+@pytest.mark.timeout(300)
+def test_dryrun_main_writes_the_json(tmp_path):
     out = tmp_path / "dry.json"
-    dryrun.main(["--arch", "gemma2_9b", "--shape", "decode_32k", "--out",
-                 str(out), "--mesh", "16x16"])
+    shown = _torch_mesh.run("main", str(out), timeout=300)
     res = json.loads(out.read_text())
     r = res["gemma2_9b/decode_32k"]
     assert r["status"] == "ok" and r["mesh"] == "16x16"
-    assert "1/1 cells OK" in capsys.readouterr().out
+    assert r["split"] == "partitioned" and r["t_collective"] > 0
     text = report.render(str(out))
-    assert "not counted" in text and "not measured" in text
-    assert report.summarize(str(out)) == "1/1 cells OK"
+    assert text == shown["render"] and "not measured" in text
+    assert f"| {r['t_collective'] * 1e3:.1f} |" in text
+    assert report.summarize(str(out)) == shown["summary"] == "1/1 cells OK"
 
 
 def _jax_shaped(path):
@@ -254,14 +267,22 @@ def test_inject_writes_what_the_jax_package_writes(tmp_path, closed):
     assert "<!-- /ROOFLINE-TABLE -->" in ours.read_text()
 
 
-def test_hillclimb_knobs_change_nothing(small):
-    plain = hillclimb.measure("phi35_moe", "train_4k")
-    knob = hillclimb.measure("phi35_moe", "train_4k", moe2d=True,
-                             kv_seq_shard=True)
+@pytest.mark.timeout(300)
+def test_hillclimb_knobs_change_nothing():
+    """The knobs change the partitioned count: moe2d shards the experts'
+    capacity axis over DP, as in the JAX lowering.  (The name is from
+    before the step was partitioned, when the knobs changed nothing; it is
+    kept so that the test's record carries on.)"""
+    res = _torch_mesh.run("hillclimb", "phi35_moe", "train_4k",
+                          {"moe2d": True, "kv_seq_shard": True}, timeout=300)
+    plain, knob = res["plain"], res["knob"]
     assert knob["knobs"] == {"moe2d": True, "kv_seq_shard": True}
-    for k in plain:
-        if k not in ("knobs", "wall_s"):
-            assert plain[k] == knob[k], k
-    assert plain["flops"] > 0 and plain["coll"] is None
+    assert plain["flops"] > 0 and plain["coll"] > 0
+    assert plain["coll_by_op"] != knob["coll_by_op"]
+    assert knob["flops"] < plain["flops"]
+    for r in (plain, knob):
+        assert r["coll"] == sum(r["coll_by_op"].values())
+        assert r["t_collective_ms"] == (r["coll"] / roofline.NIC_BYTES_PER_S
+                                        * 1e3)
     assert hillclimb.parse_knobs(["moe2d", "yadt_rs=false", "x=3"]) == {
         "moe2d": True, "yadt_rs": False, "x": 3}

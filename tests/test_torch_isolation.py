@@ -140,3 +140,30 @@ def test_tree_and_lm_constructors_without_device_need_cuda():
         transformer.params_from_jax({}, cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.serve("yi_6b", n_requests=1)
+
+
+def test_chip_smoke_stops_every_process_it_started():
+    """A spawn pool leaves multiprocessing's resource tracker running until
+    its parent exits; the smoke's exit path stops it and any other child
+    still running, so that nothing outlives the run."""
+    code = (
+        "import concurrent.futures, multiprocessing, os, subprocess, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import chip_smoke\n"
+        "ctx = multiprocessing.get_context('spawn')\n"
+        "with concurrent.futures.ProcessPoolExecutor(2, mp_context=ctx) as p:\n"
+        "    assert list(p.map(abs, [-1, -2])) == [1, 2]\n"
+        "sleeper = subprocess.Popen(\n"
+        "    [sys.executable, '-c', 'import time; time.sleep(120)'])\n"
+        "before = chip_smoke._children()\n"
+        "assert sleeper.pid in before and len(before) == 2, before\n"
+        "stopped = chip_smoke.stop_children(grace_s=5.0)\n"
+        "assert 'resource tracker' in stopped[0], stopped\n"
+        "assert any(s.startswith(f'{sleeper.pid}:') for s in stopped), stopped\n"
+        "assert chip_smoke._children() == {}, chip_smoke._children()\n"
+        "assert not any(os.path.exists(f'/proc/{pid}') for pid in before)\n"
+        "assert chip_smoke.stop_children() == []\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -17,7 +17,9 @@ atol 1e-4, the output unchanged bit for bit when it is written.  The
 backward (bf16: the tensor-core kernels, f32: the scalar ones): f32 atol
 2e-4, bf16 within 1% of the largest plain gradient, and repeatable bit for
 bit.  The same tolerances hold the kernels at the attention layers of
-every ported architecture (GQA groups 1-7 and 10, MHA).
+every ported architecture (GQA groups 1-7 and 10, MHA).  Under DTensor on
+a one-rank NCCL mesh each kernel's op (its sharding strategy, replicated or
+sharded) launches the kernel once and equals the plain launch bit for bit.
 """
 
 import dataclasses
@@ -799,3 +801,166 @@ def test_flash_backward_at_the_arch_groups(dev, arch, s, dtype):
     assert flash_attention.LAUNCHES_BWD_BY_DTYPE == {
         n: c + (n == name) for n, c in before.items()}
     _bwd_close(got, want, dtype)
+
+
+# --------------------------------------------------------------------------
+# each kernel's op under DTensor on a one-rank NCCL mesh: its sharding
+# strategy runs the same launch on the (whole) shard, bit for bit
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def one_rank_mesh():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        yield make_mesh((1, 1), ("data", "model"), "cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def _laid(t, mesh, dim):
+    """``t`` as a DTensor over the one-rank mesh: replicated (dim None),
+    or dim ``dim`` sharded over both axes."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    p = Replicate() if dim is None else Shard(dim)
+    return DTensor.from_local(t, mesh, [p, p], run_check=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dim", [None, 0, 2], ids=["rep", "batch", "heads"])
+def test_flash_ops_under_dtensor_equal_their_launch(one_rank_mesh, dtype,
+                                                    dim):
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    b, s, h, kv, d = 2, 200, 4, 2, 64
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    qs, k, v, do = rand(b, s, h, d), rand(b, s, kv, d), rand(b, s, kv, d), \
+        rand(b, s, h, d)
+    kw = dict(window=64, softcap=30.0)
+    out, lse = fa.flash_attention_fwd(qs, k, v, with_lse=True, **kw)
+    grads = fa.flash_attention_bwd(qs, k, v, out, do, lse, **kw)
+    lay = [_laid(t, one_rank_mesh, dim) for t in (qs, k, v, do)]
+    n_fwd, n_bwd = fa.LAUNCHES, fa.LAUNCHES_BWD
+    d_out = fa.flash_attention_fwd(*lay[:3], **kw)
+    d_out2, d_lse = fa.flash_attention_fwd(*lay[:3], with_lse=True, **kw)
+    d_lse_in = _laid(lse, one_rank_mesh, None if dim is None
+                     else {0: 0, 2: 1}[dim])
+    d_grads = fa.flash_attention_bwd(*lay[:3], _laid(out, one_rank_mesh,
+                                                     dim), lay[3],
+                                     d_lse_in, **kw)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES, fa.LAUNCHES_BWD) == (n_fwd + 2, n_bwd + 1)
+    assert torch.equal(d_out.full_tensor(), out)
+    assert torch.equal(d_out2.full_tensor(), out)
+    assert torch.equal(d_lse.full_tensor(), lse)
+    for got, want in zip(d_grads, grads):
+        assert torch.equal(got.full_tensor(), want)
+
+
+@pytest.mark.parametrize("dim", [None, 0, 1], ids=["rep", "cases", "attrs"])
+def test_histogram_op_under_dtensor_equals_its_launch(one_rank_mesh, dim):
+    from repro_torch.kernels import histogram
+    rng = np.random.default_rng(5)
+    n, a, b, c, k = 5_000, 9, 64, 2, 32
+    x = torch.as_tensor(rng.integers(-1, b, (n, a)).astype(np.int32),
+                        device="cuda")
+    y, slot = (torch.as_tensor(rng.integers(lo, hi, n).astype(np.int32),
+                               device="cuda") for lo, hi in ((0, c), (-1, k)))
+    w = torch.as_tensor(rng.integers(0, 4, n).astype(np.float32),
+                        device="cuda")
+    kw = dict(n_slots=k, n_bins=b, n_classes=c)
+    want = histogram.frontier_histogram(x, y, w, slot, **kw)
+    other = None if dim == 1 else dim
+    before = histogram.LAUNCHES
+    got = histogram.frontier_histogram(
+        _laid(x, one_rank_mesh, dim),
+        *(_laid(t, one_rank_mesh, other) for t in (y, w, slot)), **kw)
+    torch.cuda.synchronize()
+    assert histogram.LAUNCHES == before + 1
+    assert torch.equal(got.full_tensor(), want)
+
+
+@pytest.mark.parametrize("dim", [None, 0, 1], ids=["rep", "slots", "attrs"])
+def test_split_gain_op_under_dtensor_equals_its_launch(one_rank_mesh, dim):
+    from repro_torch.kernels import split_gain
+    rng = np.random.default_rng(6)
+    k, a, b, c = 16, 6, 32, 3
+    hist = torch.as_tensor(rng.integers(0, 5, (k, a, b, c)).astype(
+        np.float32), device="cuda")
+    total = hist.sum((1, 2, 3)) / a
+    cont = torch.as_tensor(rng.random(a) < 0.5, device="cuda")
+    nb = torch.full((a,), b, dtype=torch.int32, device="cuda")
+    want = split_gain.split_gain(hist, total, cont, nb)
+    before = split_gain.LAUNCHES
+    got = split_gain.split_gain(
+        _laid(hist, one_rank_mesh, dim),
+        _laid(total, one_rank_mesh, 0 if dim == 0 else None),
+        *(_laid(t, one_rank_mesh, 0 if dim == 1 else None)
+          for t in (cont, nb)))
+    torch.cuda.synchronize()
+    assert split_gain.LAUNCHES == before + 1
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_.full_tensor(), w_)
+
+
+@pytest.mark.parametrize("dim", [None, 0, 1], ids=["rep", "trees", "cases"])
+def test_forest_predict_op_under_dtensor_equals_its_launch(one_rank_mesh,
+                                                           dim):
+    from _forest_tables import random_cases, random_forest_table
+    from repro_torch.kernels import tree_infer
+    rng = np.random.default_rng(7)
+    cont_np = rng.random(5) < 0.5
+    tab_np, levels = random_forest_table(rng, 4, 63, cont_np)
+    tab, x, cont = (torch.as_tensor(t, device="cuda") for t in
+                    (tab_np, random_cases(rng, 900, cont_np), cont_np))
+    want = tree_infer.forest_predict(tab, x, cont, max_depth=levels)
+    before = tree_infer.LAUNCHES
+    got = tree_infer.forest_predict(
+        _laid(tab, one_rank_mesh, 0 if dim == 0 else None),
+        _laid(x, one_rank_mesh, 0 if dim == 1 else None),
+        _laid(cont, one_rank_mesh, None), max_depth=levels)
+    torch.cuda.synchronize()
+    assert tree_infer.LAUNCHES == before + 1
+    assert torch.equal(got.full_tensor(), want)
+
+
+@pytest.mark.parametrize("compact", [True, False])
+def test_frontier_supersteps_on_a_one_rank_mesh_equal_unpartitioned(
+        one_rank_mesh, compact):
+    """Four supersteps with the cases as DTensors (the compaction on each
+    rank's shard, the histogram and split-gain ops under their
+    strategies) equal the unpartitioned ones bit for bit, with as many
+    kernel launches."""
+    import _torch_mesh
+    from repro_torch.kernels import histogram, split_gain
+    npz = _torch_mesh.tree_npz(compact)
+
+    def run(mesh):
+        before = histogram.LAUNCHES, split_gain.LAUNCHES
+        out = _torch_mesh.superstep_out(
+            *_torch_mesh.tree_cell(npz, "cuda"), mesh, 4, impl="cuda")
+        torch.cuda.synchronize()
+        return out, (histogram.LAUNCHES - before[0],
+                     split_gain.LAUNCHES - before[1])
+    want, n_want = run(None)
+    got, n_got = run(one_rank_mesh)
+    assert n_got == n_want and n_want[0] > 0
+    assert int(got["n_nodes"]) > 1
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)

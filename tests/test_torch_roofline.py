@@ -152,19 +152,32 @@ def test_roofline_terms():
     jkeys = jrl.Roofline("a", "s", "m", 1.0, 1.0, 1.0, {}, 1.0, 1.0,
                          1.0).as_dict(1)
     assert set(jkeys) <= set(d) and d["peak_mem_gb"] is None
-    mesh = rl.Roofline("a", "s", "16x16", 1e12, 1e9, None, {}, None, 1e9,
-                       1e14, min_bytes=1e12)
-    assert mesh.t_collective is None and mesh.bound_by == "bytes"
+    bw, link = rl.collective_rate(256)
+    mesh = rl.Roofline("a", "s", "16x16", 1e12, 1e9, 5e10,
+                       {"all-gather": 5e10}, None, 1e9, 1e14, min_bytes=1e12,
+                       coll_bw=bw, coll_link=link)
+    assert mesh.t_collective == 5e10 / 50e9 and link == "nic_400g"
+    assert mesh.bottleneck == "collective" and mesh.bound_by == "bytes"
+    assert mesh.roofline_seconds == mesh.t_collective
     assert mesh.useful_flops_ratio(256) == 1e14 / (1e12 * 256)
+    assert rl.collective_rate(8) == (450e9, "nvlink4")
+    assert rl.collective_rate(1) == (450e9, "nvlink4")
 
 
 def test_analyze_splits_evenly_and_picks_the_peak():
+    """A mesh's counts are a partitioned step's, one device's own: analyze
+    divides nothing, and takes the collective term at the mesh's rate."""
     c = rl.Costs(device_flops=256e12, device_bytes=512e9, arg_bytes=256e9,
-                 out_bytes=0.0, n_ops=10)
+                 out_bytes=0.0, n_ops=10, coll_bytes=3e9,
+                 coll_by_op={"all-gather": 1e9, "reduce-scatter": 2e9})
     r = rl.analyze(c, arch="yi_6b", shape="train_4k", mesh_desc="16x16",
                    n_devices=256)
-    assert r.device_flops == 1e12 and r.device_coll_bytes is None
-    assert r.min_bytes == 1e9 and r.peak_flops == OLD_BF16
+    assert r.device_flops == 256e12 and r.device_coll_bytes == 3e9
+    assert r.coll_by_op == c.coll_by_op and r.coll_link == "nic_400g"
+    assert r.t_collective == 3e9 / 50e9
+    assert r.min_bytes == 256e9 and r.peak_flops == OLD_BF16
+    assert rl.analyze(c, arch="yi_6b", shape="train_4k", mesh_desc="2x4",
+                      n_devices=8).t_collective == 3e9 / 450e9
     y = rl.analyze(c, arch="yadt", shape="train_4k", mesh_desc="1",
                    n_devices=1)
     assert y.peak_flops == OLD_F32 and y.model_flops == 0.0
