@@ -27,8 +27,8 @@ Phases (each one that fails ends the run with a non-zero exit):
      frontier_supersteps_total must be its supersteps, and its histogram
      and split-gain launches those supersteps (with live cases, for the
      histogram).  Prints the time of each phase (splitPre, splitAtt,
-     splitPost, each ending in a wait for the card) beside the untraced
-     wall time and the text report, and writes the Chrome trace to
+     splitPost: the host's time in it, its own waits included) beside the
+     untraced wall time and the text report, and writes the Chrome trace to
      build/trace_syd10m9a.json.
   4. census_pums at scale 1.0 (299,285 cases, 40 attributes): the wide
      discrete-split case, impl="cuda" against impl="torch".

@@ -30,12 +30,25 @@ In splitAtt the compaction runs on the rank's own cases
 them under its registered sharding strategy, a partial sum across ranks
 (``sharding.act.shard_frontier_hist`` reduce-scatters it over K under the
 ``yadt_rs`` knob, as the JAX package's does).
+
+With an enabled ``Tracer`` (``build(tracer=...)``) the build runs as
+spans on the host's clock that add no wait for the card: ``entry.copy``
+(the rows to the device), ``entry.init`` (the initial state and the
+loop's first test), then a ``superstep`` span a superstep holding its
+``splitPre`` / ``splitAtt`` / ``splitPost`` phases and the loop's next
+test.  Each place the host waits for the card is a ``wait.*`` span around
+the read itself: ``wait.loop`` (the loop's test), ``wait.frontier``
+(splitPre's ``nonzero``), ``wait.compact`` (the compaction's
+``nonzero``), ``wait.status`` (a status written from a host scalar, which
+torch copies to the device and waits for: the root's in the initial
+state, the new children's in splitPost) and ``wait.stats`` (the one read
+of every superstep's statistics, after the loop).  ``kernel.histogram`` and
+``kernel.split_gain`` time the host's calls of splitAtt's two kernels.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any
 
 import numpy as np
@@ -48,6 +61,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.tree import Tree
 from repro_torch.kernels import compaction, histogram, ref, split_gain
 from repro_torch.kernels._dtensor import is_dtensor
+from repro_torch.obs.trace import NULL
 from repro_torch.sharding.act import (active_cases_sharded, replicate,
                                       shard_frontier_hist)
 
@@ -91,7 +105,8 @@ class FrontierProblem:
 
 
 def init_state(prob: FrontierProblem, y: torch.Tensor, w: torch.Tensor,
-               attr_mask: torch.Tensor | None = None) -> GrowState:
+               attr_mask: torch.Tensor | None = None, tracer=NULL
+               ) -> GrowState:
     cfg = prob.cfg
     dev = y.device
     m = cfg.max_nodes
@@ -104,7 +119,10 @@ def init_state(prob: FrontierProblem, y: torch.Tensor, w: torch.Tensor,
     if attr_mask is not None:
         active &= attr_mask[None, :]
     status = torch.zeros((m + 1,), dtype=torch.int32, device=dev)
-    status[0] = GrowState.STATUS_OPEN
+    # a host scalar written by index goes through a blocking copy to the
+    # device, so the host waits here for the root's counts
+    with tracer.span("wait.status"):
+        status[0] = GrowState.STATUS_OPEN
     return GrowState(
         tree=tree, status=status, active=active,
         case_node=torch.zeros((prob.n_cases,), dtype=torch.int32, device=dev),
@@ -175,7 +193,7 @@ def _laid_state(local: GrowState, cases) -> GrowState:
 
 
 def _histogram(x, y, w, slot, *, n_open: int, prob: FrontierProblem,
-               impl: str):
+               impl: str, tracer=NULL):
     """The (K, A, B+1, C) histogram; the cases lie in slots below
     ``n_open``, which sizes the kernel's shared window.  Of DTensor cases,
     the kernel's op (on CPU shards its CPU kernel, the plain version)
@@ -188,37 +206,40 @@ def _histogram(x, y, w, slot, *, n_open: int, prob: FrontierProblem,
     if is_dtensor(x) and not active_cases_sharded():
         x, y, w, slot = (replicate(t) for t in (x, y, w, slot))
     if cfg.compact:
-        x, y, w, slot = compaction.live_cases(x, y, w, slot)
-    if impl == "torch" and not is_dtensor(x):
-        return ref.frontier_histogram_ref(x, y, w, slot, **kw)
-    return histogram.frontier_histogram(x, y, w, slot, n_live_slots=n_open,
-                                        block_t=cfg.block_t,
-                                        block_k=cfg.block_k, **kw)
+        x, y, w, slot = compaction.live_cases(x, y, w, slot, tracer=tracer)
+    with tracer.span("kernel.histogram"):
+        if impl == "torch" and not is_dtensor(x):
+            return ref.frontier_histogram_ref(x, y, w, slot, **kw)
+        return histogram.frontier_histogram(
+            x, y, w, slot, n_live_slots=n_open, block_t=cfg.block_t,
+            block_k=cfg.block_k, **kw)
 
 
 def _gains(hist, total_w, attr_is_cont, n_bins, *, prob: FrontierProblem,
-           impl: str):
+           impl: str, tracer=NULL):
     """(K, A) score / split-bin planes from the (K, A, B, C) histogram."""
     cfg = prob.cfg
     kw = dict(min_objs=cfg.min_objs, criterion=cfg.criterion)
-    if impl == "torch":
-        return ref.split_gain_ref(hist, total_w, attr_is_cont, n_bins, **kw)
-    return split_gain.split_gain(hist, total_w, attr_is_cont, n_bins,
-                                 block_b=cfg.block_b, **kw)
+    with tracer.span("kernel.split_gain"):
+        if impl == "torch":
+            return ref.split_gain_ref(hist, total_w, attr_is_cont, n_bins,
+                                      **kw)
+        return split_gain.split_gain(hist, total_w, attr_is_cont, n_bins,
+                                     block_b=cfg.block_b, **kw)
 
 
 # --------------------------------------------------------------------------
 # One superstep = splitPre + splitAtt + splitPost over K open nodes.
 # --------------------------------------------------------------------------
 
-def split_pre(state: GrowState, *, prob: FrontierProblem
+def split_pre(state: GrowState, *, prob: FrontierProblem, tracer=NULL
               ) -> dict[str, torch.Tensor]:
     """Frontier selection + stop tests on stored node frequencies.  Of a
     partitioned state, on each rank's local tensors (the module's
     docstring); ``slot`` then takes the cases' layout."""
     if is_dtensor(state.case_node):
         cases = state.case_node
-        pre = split_pre(_local_state(state), prob=prob)
+        pre = split_pre(_local_state(state), prob=prob, tracer=tracer)
         return {k: _as_cases(v, cases) if k == "slot"
                 else _as_replicated(v, cases) for k, v in pre.items()}
     cfg = prob.cfg
@@ -228,9 +249,10 @@ def split_pre(state: GrowState, *, prob: FrontierProblem
 
     # ---- the first K open node ids, ascending (= breadth-first), padded
     # with m: nonzero returns them sorted
-    ids = torch.nonzero(state.status[:m] == GrowState.STATUS_OPEN
-                        ).flatten()[:k]
-    n_open = ids.numel()             # host-side: nonzero has synchronised
+    with tracer.span("wait.frontier"):
+        ids = torch.nonzero(state.status[:m] == GrowState.STATUS_OPEN
+                            ).flatten()[:k]
+        n_open = ids.numel()         # host-side: nonzero has synchronised
     ids = torch.nn.functional.pad(ids, (0, k - n_open), value=m)
     valid = ids < m
     ids_safe = torch.clamp_max(ids, m - 1)
@@ -253,16 +275,17 @@ def split_pre(state: GrowState, *, prob: FrontierProblem
 
 def split_att(state: GrowState, pre: dict, x: torch.Tensor, y: torch.Tensor,
               w: torch.Tensor, attr_is_cont: torch.Tensor,
-              n_bins: torch.Tensor, *, prob: FrontierProblem, impl: str
-              ) -> dict[str, torch.Tensor]:
+              n_bins: torch.Tensor, *, prob: FrontierProblem, impl: str,
+              tracer=NULL) -> dict[str, torch.Tensor]:
     """The hot phase: histogram + gain over (node, attribute)."""
     b_dim = prob.n_bins_max
     hist_u = shard_frontier_hist(_histogram(
-        x, y, w, pre["slot"], n_open=pre["n_open"], prob=prob, impl=impl))
+        x, y, w, pre["slot"], n_open=pre["n_open"], prob=prob, impl=impl,
+        tracer=tracer))
     hist = hist_u[:, :, :b_dim, :]
     unknown = hist_u[:, :, b_dim, :]                              # (K, A, C)
     score, split_bin = _gains(hist, pre["total_w"], attr_is_cont, n_bins,
-                              prob=prob, impl=impl)
+                              prob=prob, impl=impl, tracer=tracer)
     # the K-wide planes whole on every rank, as the node arithmetic below
     # and splitPost read them
     score, split_bin = replicate(score), replicate(split_bin)
@@ -274,7 +297,7 @@ def split_att(state: GrowState, pre: dict, x: torch.Tensor, y: torch.Tensor,
 
 def split_post(state: GrowState, pre: dict, att: dict, x: torch.Tensor,
                attr_is_cont: torch.Tensor, n_bins: torch.Tensor, *,
-               prob: FrontierProblem
+               prob: FrontierProblem, tracer=NULL
                ) -> tuple[GrowState, dict[str, torch.Tensor]]:
     """Argmax done: allocate children, scatter results, route cases.  Of a
     partitioned state, on each rank's local tensors (the module's
@@ -287,7 +310,7 @@ def split_post(state: GrowState, pre: dict, att: dict, x: torch.Tensor,
             {k: _own(v, cases) if k == "slot" else _whole(v)
              for k, v in pre.items()},
             {k: _whole(v) for k, v in att.items()}, _own(x, cases),
-            _whole(attr_is_cont), _whole(n_bins), prob=prob)
+            _whole(attr_is_cont), _whole(n_bins), prob=prob, tracer=tracer)
         stats = {k: _as_replicated(v, cases) for k, v in stats.items()}
         stats["n_active"] = DTensor.from_local(
             stats["n_active"].to_local(), cases.device_mesh,
@@ -367,7 +390,8 @@ def split_post(state: GrowState, pre: dict, att: dict, x: torch.Tensor,
     tree.node_freq[cids] = child_freq.reshape(-1, c_dim)
     tree.node_depth[cids] = (depth_k[:, None] + 1).expand(k, h_dim).reshape(
         -1).to(torch.int32)
-    state.status[cids] = GrowState.STATUS_OPEN
+    with tracer.span("wait.status"):     # a blocking scalar copy, as above
+        state.status[cids] = GrowState.STATUS_OPEN
     attr_ids = torch.arange(a_dim, device=dev)[None, :]
     child_active = state.active[ids_safe] & ~(
         (~is_cont)[:, None] & (attr_ids == best_attr[:, None]))
@@ -410,47 +434,44 @@ def split_post(state: GrowState, pre: dict, att: dict, x: torch.Tensor,
 def superstep(state: GrowState, x: torch.Tensor, y: torch.Tensor,
               w: torch.Tensor, attr_is_cont: torch.Tensor,
               n_bins: torch.Tensor, *, prob: FrontierProblem,
-              impl: str = "torch"
+              impl: str = "torch", tracer=NULL
               ) -> tuple[GrowState, dict[str, torch.Tensor]]:
-    """One superstep: splitPre -> splitAtt -> splitPost.  Updates the
-    state's node arrays in place and returns the new state."""
-    pre = split_pre(state, prob=prob)
-    att = split_att(state, pre, x, y, w, attr_is_cont, n_bins, prob=prob,
-                    impl=impl)
-    return split_post(state, pre, att, x, attr_is_cont, n_bins, prob=prob)
+    """One superstep: splitPre -> splitAtt -> splitPost, each a span of
+    ``tracer`` (the host's time in the phase, the waits it makes itself
+    included).  Updates the state's node arrays in place and returns the
+    new state."""
+    with tracer.span("splitPre"):
+        pre = split_pre(state, prob=prob, tracer=tracer)
+    with tracer.span("splitAtt"):
+        att = split_att(state, pre, x, y, w, attr_is_cont, n_bins,
+                        prob=prob, impl=impl, tracer=tracer)
+    with tracer.span("splitPost"):
+        return split_post(state, pre, att, x, attr_is_cont, n_bins,
+                          prob=prob, tracer=tracer)
 
 
 # --------------------------------------------------------------------------
 # Full build
 # --------------------------------------------------------------------------
 
-def _traced_superstep(state: GrowState, x: torch.Tensor, y: torch.Tensor,
-                      w: torch.Tensor, attr_is_cont: torch.Tensor,
-                      n_bins: torch.Tensor, *, prob: FrontierProblem,
-                      impl: str, tracer, phase_seconds, step: int
-                      ) -> tuple[GrowState, dict[str, torch.Tensor]]:
-    """:func:`superstep` as a ``superstep`` span holding its three phases
-    as ``splitPre`` / ``splitAtt`` / ``splitPost`` spans, one after
-    another.  Each phase ends by waiting for the card (the JAX build's
-    ``block_until_ready``), so a span's time is its host dispatch and its
-    device work; its seconds also go to ``phase_seconds{phase=...}``."""
-    dev = x.device
+def _open_left(state: GrowState, m: int, tracer) -> bool:
+    """The loop's test, any node still open: the JAX build's
+    ``lax.while_loop`` condition, a wait for the device here."""
+    with tracer.span("wait.loop"):
+        return bool(torch.any(state.status[:m] == GrowState.STATUS_OPEN))
 
-    def timed(name, fn, *args, **kw):
-        t0 = time.perf_counter()
-        with tracer.span(name):
-            out = fn(*args, **kw)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-        phase_seconds.observe(time.perf_counter() - t0, phase=name)
-        return out
 
-    with tracer.span("superstep", step=step):
-        pre = timed("splitPre", split_pre, state, prob=prob)
-        att = timed("splitAtt", split_att, state, pre, x, y, w, attr_is_cont,
-                    n_bins, prob=prob, impl=impl)
-        return timed("splitPost", split_post, state, pre, att, x,
-                     attr_is_cont, n_bins, prob=prob)
+def _read_stats(pending: list[dict[str, torch.Tensor]]
+                ) -> list[dict[str, Any]]:
+    """The supersteps' statistics, left on the device, as the rows
+    ``.item()`` gives, in one read: each value (an int32 count, a float32
+    weight, a flag) is exact in float64."""
+    keys = list(pending[0])
+    cols = [torch.stack([s[k] for s in pending]) for k in keys]
+    cast = [bool if c.dtype == torch.bool
+            else float if c.is_floating_point() else int for c in cols]
+    values = torch.stack([c.to(torch.float64) for c in cols], 1).tolist()
+    return [{k: f(v) for k, f, v in zip(keys, cast, row)} for row in values]
 
 
 def build(ds: BinnedDataset, cfg: GrowConfig = GrowConfig(), *,
@@ -473,14 +494,14 @@ def build(ds: BinnedDataset, cfg: GrowConfig = GrowConfig(), *,
     ``frontier_nap_nodes_total`` and ``frontier_children_total``.
 
     With an *enabled* ``tracer`` (:class:`repro_torch.obs.trace.Tracer`)
-    the registry is fed as well, and each superstep runs as a ``superstep``
-    span whose three phases are separately synchronised ``splitPre`` /
-    ``splitAtt`` / ``splitPost`` spans, timed into
-    ``frontier_phase_seconds{phase=...}``; the tracer also gets a
-    ``frontier.n_active`` counter sample a superstep.  Without stats it
-    still returns the tree alone.  With tracing disabled (``None`` or
-    :data:`repro_torch.obs.trace.NULL`) and no stats, the loop runs as
-    untraced, with no metric.
+    the build runs as the spans of the module's docstring, and the
+    registry is fed as well.  The statistics then stay on the device
+    until the loop ends and are read once (``wait.stats``), where each
+    superstep would otherwise wait for them; the tracer also gets a
+    ``frontier.n_active`` counter sample a superstep, stamped with the
+    superstep's start.  Without stats it still returns the tree alone.
+    With tracing disabled (``None`` or :data:`repro_torch.obs.trace.NULL`)
+    and no stats, the loop runs untraced, with no metric.
 
     ``attr_mask`` (bool (A,)) restricts the split search to a subset of
     attributes; ``case_w`` (f32 (N,)) overrides the per-case weights.
@@ -494,17 +515,20 @@ def build(ds: BinnedDataset, cfg: GrowConfig = GrowConfig(), *,
         raise ValueError(f"unknown impl {impl!r}; choose from {IMPLS}")
     if impl == "cuda" and dev.type != "cuda":
         raise ValueError(f"impl='cuda' needs a CUDA device, got {dev}")
+    tracer = NULL if tracer is None else tracer
     prob = FrontierProblem.from_dataset(ds, cfg)
-    x = torch.as_tensor(ds.x, dtype=torch.int32).to(dev).contiguous()
-    y = torch.as_tensor(ds.y, dtype=torch.int32).to(dev)
-    w = torch.as_tensor(np.asarray(ds.w if case_w is None else case_w,
-                                   np.float32)).to(dev)
-    mask = (None if attr_mask is None
-            else torch.as_tensor(np.asarray(attr_mask, bool)).to(dev))
-    cont = torch.as_tensor(ds.attr_is_cont, dtype=torch.bool).to(dev)
-    nb = torch.as_tensor(ds.n_bins, dtype=torch.int32).to(dev)
+    # the host's rows are pageable: the host waits for each copy
+    with tracer.span("entry.copy"):
+        x = torch.as_tensor(ds.x, dtype=torch.int32).to(dev).contiguous()
+        y = torch.as_tensor(ds.y, dtype=torch.int32).to(dev)
+        w = torch.as_tensor(np.asarray(ds.w if case_w is None else case_w,
+                                       np.float32)).to(dev)
+        mask = (None if attr_mask is None
+                else torch.as_tensor(np.asarray(attr_mask, bool)).to(dev))
+        cont = torch.as_tensor(ds.attr_is_cont, dtype=torch.bool).to(dev)
+        nb = torch.as_tensor(ds.n_bins, dtype=torch.int32).to(dev)
     m = cfg.max_nodes
-    traced = tracer is not None and tracer.enabled
+    traced = tracer.enabled
     observed = collect_stats or traced
     if observed:
         from repro_torch.obs import metrics as obs_metrics
@@ -514,31 +538,37 @@ def build(ds: BinnedDataset, cfg: GrowConfig = GrowConfig(), *,
         m_open = reg.gauge("frontier_open_nodes")
         m_nap = reg.counter("frontier_nap_nodes_total")
         m_children = reg.counter("frontier_children_total")
-        m_phase = reg.histogram("frontier_phase_seconds",
-                                "per-phase superstep wall time, phase= label")
 
-    state = init_state(prob, y, w, mask)
     rows: list[dict[str, Any]] = []
-    # The JAX build's lax.while_loop is a host loop here: its condition
-    # waits for the device once per superstep.
-    while bool(torch.any(state.status[:m] == GrowState.STATUS_OPEN)):
-        if traced:
-            state, stats = _traced_superstep(
-                state, x, y, w, cont, nb, prob=prob, impl=impl,
-                tracer=tracer, phase_seconds=m_phase, step=len(rows))
-        else:
+    pending, starts = [], []        # traced: the statistics left on device
+    with tracer.span("entry.init"):
+        state = init_state(prob, y, w, mask, tracer)
+        left = _open_left(state, m, tracer)
+    step = 0
+    while left:
+        with tracer.span("superstep", step=step) as span:
             state, stats = superstep(state, x, y, w, cont, nb, prob=prob,
-                                     impl=impl)
-        if observed:
-            row = {key: v.item() for key, v in stats.items()}
-            rows.append(row)
+                                     impl=impl, tracer=tracer)
+            if traced:
+                pending.append(stats)
+                starts.append(span.ts)
+            elif collect_stats:
+                rows.append({key: v.item() for key, v in stats.items()})
+            left = _open_left(state, m, tracer)
+        step += 1
+    if traced:
+        with tracer.span("wait.stats"):
+            rows = _read_stats(pending)
+    if observed:
+        for i, row in enumerate(rows):
             m_steps.inc()
             m_active.set(row["n_active"])
             m_open.set(row["n_processed"])
             m_nap.inc(row["nap_nodes"])
             m_children.inc(row["n_children"])
             if traced:
-                tracer.counter("frontier.n_active", value=row["n_active"])
+                tracer.counter("frontier.n_active", ts=starts[i],
+                               value=row["n_active"])
     t = state.tree
     tree = Tree(**{f.name: getattr(t, f.name)[:m]
                    for f in dataclasses.fields(Tree) if f.name != "n_nodes"},

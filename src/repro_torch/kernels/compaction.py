@@ -5,7 +5,8 @@ set.  Gathering the live cases (slot >= 0) into dense buffers first makes
 the histogram cost O(live) instead of O(N).  The JAX package needs a ladder
 of static bucket sizes under ``lax.switch`` for this; here the gather is
 sized by the live count itself (one ``nonzero``, which waits for the device)
-and the histogram runs on exactly that many cases.  The buffers pass
+and the histogram runs on exactly that many cases (a ``tracer`` times
+that wait as a ``wait.compact`` span).  The buffers pass
 through ``sharding.act.shard_active_cases`` as the JAX package's do (the
 identity on a plain tensor).
 
@@ -20,17 +21,20 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels._dtensor import is_dtensor
+from repro_torch.obs.trace import NULL
 from repro_torch.sharding.act import shard_active_cases
 
 
 def live_cases(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
-               slot: torch.Tensor) -> tuple[torch.Tensor, ...]:
+               slot: torch.Tensor, tracer=NULL
+               ) -> tuple[torch.Tensor, ...]:
     """``(x, y, w, slot)`` cut to the cases with ``slot >= 0``, in case
     order; the inputs themselves when every case is live.  Of DTensors,
     each rank's live cases in its shard, padded (:func:`_live_sharded`)."""
     if is_dtensor(slot):
-        return _live_sharded(x, y, w, slot)
-    idx = torch.nonzero(slot >= 0).flatten()
+        return _live_sharded(x, y, w, slot, tracer)
+    with tracer.span("wait.compact"):
+        idx = torch.nonzero(slot >= 0).flatten()
     if idx.numel() == slot.numel():
         return x, y, w, slot
     return (shard_active_cases(x.index_select(0, idx)),
@@ -38,7 +42,7 @@ def live_cases(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
             shard_active_cases(slot.index_select(0, idx)))
 
 
-def _live_sharded(x, y, w, slot) -> tuple[torch.Tensor, ...]:
+def _live_sharded(x, y, w, slot, tracer) -> tuple[torch.Tensor, ...]:
     """DTensor cases laid out alike: on each rank its shard's live cases
     in case order, then dead ones up to the mesh's largest live count (an
     all-reduce of one int over the mesh dims the cases are sharded on);
@@ -48,7 +52,8 @@ def _live_sharded(x, y, w, slot) -> tuple[torch.Tensor, ...]:
     mesh, pl = slot.device_mesh, slot.placements
     x, y, w, slot = (t.redistribute(mesh, pl).to_local()
                      for t in (x, y, w, slot))
-    idx = torch.nonzero(slot >= 0).flatten()
+    with tracer.span("wait.compact"):
+        idx = torch.nonzero(slot >= 0).flatten()
     count = torch.tensor(idx.numel(), dtype=torch.int64, device=slot.device)
     most = int(DTensor.from_local(
         count, mesh, [Partial("max") if p.is_shard() else Replicate()

@@ -45,9 +45,10 @@ _NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    """One open duration span; emits a single complete ("X") event on exit."""
+    """One open duration span; emits a single complete ("X") event on exit.
+    ``ts``: its start on the tracer's clock (us), once entered."""
 
-    __slots__ = ("_tracer", "_name", "_args", "_t0")
+    __slots__ = ("_tracer", "_name", "_args", "ts")
 
     def __init__(self, tracer: "Tracer", name: str, args: dict | None):
         self._tracer = tracer
@@ -55,14 +56,14 @@ class _Span:
         self._args = args
 
     def __enter__(self) -> "_Span":
-        self._t0 = self._tracer._now_us()
+        self.ts = self._tracer._now_us()
         return self
 
     def __exit__(self, *exc: Any) -> bool:
         tr = self._tracer
         t1 = tr._now_us()
-        ev = {"name": self._name, "ph": "X", "ts": self._t0,
-              "dur": t1 - self._t0, "pid": tr._pid, "tid": tr._tid()}
+        ev = {"name": self._name, "ph": "X", "ts": self.ts,
+              "dur": t1 - self.ts, "pid": tr._pid, "tid": tr._tid()}
         if self._args:
             ev["args"] = self._args
         tr._emit(ev)
@@ -122,11 +123,15 @@ class Tracer:
             ev["args"] = args
         self._emit(ev)
 
-    def counter(self, name: str, **values: float) -> None:
-        """A counter sample (``ph="C"``): Perfetto draws a value timeline."""
+    def counter(self, name: str, *, ts: float | None = None,
+                **values: float) -> None:
+        """A counter sample (``ph="C"``): Perfetto draws a value timeline.
+        ``ts`` stamps it at an earlier time on this clock (a span's
+        ``ts``, for a value read later); default now."""
         if not self.enabled:
             return
-        self._emit({"name": name, "ph": "C", "ts": self._now_us(),
+        self._emit({"name": name, "ph": "C",
+                    "ts": self._now_us() if ts is None else ts,
                     "pid": self._pid, "tid": self._tid(), "args": values})
 
     def begin(self, name: str, id: int, **args: Any) -> None:

@@ -2,7 +2,6 @@
 
     PYTHONPATH=src python3 -m repro_torch.profile_build
     PYTHONPATH=src python3 -m repro_torch.profile_build --against OTHER/src
-    PYTHONPATH=src python3 -m repro_torch.profile_build --trace
 
 The second form profiles the port of another checkout (an earlier commit
 unpacked with ``git archive``) and this one in turns, against, this, this,
@@ -25,17 +24,6 @@ beside the histogram: each superstep's ``index_add_`` of the plain version
 queued); the trees are equal, so its launches have the kernel's shapes.
 It checks no result; ``chip_smoke.py`` holds the kernels and the trees.
 An earlier port reports no launches by plan and no library time.
-
-``--trace`` answers instead where the build's host time goes.  It times
-the untraced build, then the traced one (``frontier.build(tracer=...)``:
-each superstep's ``splitPre``, ``splitAtt`` and ``splitPost`` as spans
-that end by waiting for the card), then runs the traced build once more
-under ``torch.profiler`` (host and device activity) with each span also a
-profiler range: a device event counts to the phase range in which it
-starts (each phase ends by waiting for the card).
-For each phase it prints the traced wall time beside the device time of
-its kernels; the difference is the host's dispatch and wait of that phase,
-and the phase with the most of it sets the build's pace.
 """
 
 from __future__ import annotations
@@ -250,91 +238,6 @@ def profile(ds, cfg, *, top: int = 12) -> dict:
             bound_ms=sum(split_gain_bound_ms(*s) for s in gain_shapes)))
 
 
-PHASES = ("splitPre", "splitAtt", "splitPost")
-
-
-def trace_phases(ds, cfg) -> dict:
-    """``--trace``: the build's wall time by phase beside the device time
-    of the kernels each phase launched (see the module docstring)."""
-    import bisect
-    import contextlib
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as _profile
-    from torch.profiler import record_function
-
-    from repro_torch.core import frontier
-    from repro_torch.obs import Registry, Tracer
-
-    class RangedTracer(Tracer):
-        """A tracer whose spans are also profiler ranges."""
-
-        @contextlib.contextmanager
-        def span(self, name, **args):
-            with record_function(name), Tracer.span(self, name, **args):
-                yield
-
-    def timed_build(tracer=None) -> float:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        frontier.build(ds, cfg, impl="cuda", tracer=tracer,
-                       metrics=Registry())
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    timed_build()                      # warm-up: kernel load, allocator
-    untraced = timed_build()
-    tracer = Tracer()
-    traced = timed_build(tracer)
-    spans = tracer.span_summary()
-    with _profile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        profiled = timed_build(RangedTracer())
-    # Each phase ends by waiting for the card, so the kernels and copies it
-    # launched run inside its host range on the profiler's one timeline:
-    # a device event counts to the phase range holding its start.  (Launch
-    # correlation would miss the CUDA kernels, which are launched through
-    # ctypes and not through a torch op.)  A range's device-side
-    # annotation spans its kernels and is not counted.
-    events = prof.events()
-    ranges = sorted((e.time_range.start, e.time_range.end, e.name)
-                    for e in events if e.device_type == DeviceType.CPU
-                    and e.name in PHASES)
-    starts = [r[0] for r in ranges]
-    launched = {name: [0.0, 0] for name in PHASES}     # device us, events
-    busy_us = 0.0
-    for e in events:
-        if (e.device_type != DeviceType.CUDA
-                or getattr(e, "is_user_annotation", False)):
-            continue
-        busy_us += e.self_device_time_total
-        i = bisect.bisect_right(starts, e.time_range.start) - 1
-        if i >= 0 and e.time_range.start < ranges[i][1]:
-            acc = launched[ranges[i][2]]
-            acc[0] += e.self_device_time_total
-            acc[1] += 1
-    busy_s = busy_us / 1e6
-    phases = {}
-    for name in PHASES:
-        wall = spans[name]["total_us"] / 1e6
-        dev_s = launched[name][0] / 1e6
-        phases[name] = dict(spans=spans[name]["count"], wall_s=wall,
-                            device_s=dev_s, host_s=wall - dev_s,
-                            device_events=launched[name][1])
-    steps_s = spans["superstep"]["total_us"] / 1e6
-    return dict(
-        untraced_wall_s=untraced, traced_wall_s=traced,
-        profiled_traced_wall_s=profiled,
-        supersteps=spans["superstep"]["count"], superstep_wall_s=steps_s,
-        outside_supersteps_s=traced - steps_s,
-        device_busy_s=busy_s,
-        device_outside_phases_s=busy_s - sum(p["device_s"]
-                                             for p in phases.values()),
-        phases=phases,
-        pace=max(PHASES, key=lambda n: phases[n]["host_s"]))
-
-
 def compare(against: str) -> int:
     """Profile the port in ``against`` (the ``src`` directory of another
     checkout, such as an earlier commit's) and this one in turns: against,
@@ -371,9 +274,6 @@ def main(argv=None) -> int:
     ap.add_argument("--grow", help="the grow configuration's fields as "
                     "JSON (default: repro_torch.configs.yadt.WORKLOAD.grow; "
                     "a profile of another checkout gets this one's)")
-    ap.add_argument("--trace", action="store_true", help="time the "
-                    "traced build's phases beside their kernels' device "
-                    "time instead of the profile")
     args = ap.parse_args(argv)
     if args.against:
         return compare(args.against)
@@ -399,9 +299,6 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     syd = quest.syd(SYD_CASES, seed=SYD_SEED, max_bins=SYD_BINS)
-    if args.trace:
-        print(json.dumps({"card": card, "trace": trace_phases(syd, cfg)}))
-        return 0
     out = profile(syd, cfg)
     print(json.dumps({"card": card, "profile": out}))
     return 0

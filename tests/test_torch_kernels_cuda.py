@@ -231,9 +231,11 @@ def test_build_cuda_equals_torch_on_the_card(dev):
 
 
 def test_traced_build_equals_untraced_on_the_card(dev):
-    """frontier.build(impl="cuda") with an enabled tracer (each phase a
-    span that waits for the card) grows the untraced tree, with a span of
-    each phase and a histogram and split-gain launch each superstep."""
+    """frontier.build(impl="cuda") with an enabled tracer (spans that add
+    no wait for the card) grows the untraced tree, with a span of each
+    phase, each wait and each kernel call a superstep, and a histogram and
+    split-gain launch each superstep; the registry holds the frontier's
+    counters and gauges and no ``frontier_phase_seconds``."""
     from repro_torch.core import frontier
     from repro_torch.core.config import GrowConfig
     from repro_torch.core.tree import trees_equal
@@ -249,12 +251,85 @@ def test_traced_build_equals_untraced_on_the_card(dev):
                                   tracer=tr, metrics=reg)
     assert trees_equal(plain, traced)
     summ = tr.span_summary()
-    for span in ("superstep", "splitPre", "splitAtt", "splitPost"):
-        assert summ[span]["count"] == len(rows)
+    for span in ("superstep", "splitPre", "splitAtt", "splitPost",
+                 "wait.frontier", "wait.compact", "kernel.histogram",
+                 "kernel.split_gain"):
+        assert summ[span]["count"] == len(rows), span
+    for span in ("wait.status", "wait.loop"):
+        assert summ[span]["count"] == len(rows) + 1, span
+    for span in ("entry.copy", "entry.init", "wait.stats"):
+        assert summ[span]["count"] == 1, span
     assert split_gain.LAUNCHES - g0 == len(rows)
     assert histogram.LAUNCHES - h0 == sum(r["n_active"] > 0 for r in rows)
-    phase = reg.snapshot()["frontier_phase_seconds"]["series"]
-    assert len(phase) == 3 and all(s["count"] == len(rows) for s in phase)
+    assert "frontier_phase_seconds" not in reg.snapshot()
+    assert set(reg.snapshot()) == {
+        "frontier_supersteps_total", "frontier_active_cases",
+        "frontier_open_nodes", "frontier_nap_nodes_total",
+        "frontier_children_total"}
+
+
+def test_tracer_adds_one_synchronising_call_a_build(dev, monkeypatch):
+    """Synchronising calls of one build, counted by torch's sync debug mode
+    ("warn": a warning each, at the line of the port that made it) plus
+    any explicit ``torch.cuda.synchronize``: with an enabled Tracer and no
+    stats a build makes exactly one more than the untraced build of the
+    same tree, the one read of the statistics after the loop, and the
+    same calls at every other line.  The untraced build makes 4N + 2 at
+    the traced ``wait.*`` spans' lines: the loop's N + 1 tests, two
+    ``nonzero`` and a status write a superstep, the root's status write."""
+    import collections
+    import warnings
+    from pathlib import Path
+
+    from repro_torch.core import frontier
+    from repro_torch.core.config import GrowConfig
+    from repro_torch.core.tree import trees_equal
+    from repro_torch.data import datasets
+    from repro_torch.obs import Registry, Tracer
+    port = str(Path(frontier.__file__).resolve().parents[1])
+    ds = datasets.load("census_pums", scale=0.01, max_bins=64)
+    cfg = GrowConfig(max_nodes=1 << 14, frontier_slots=64)
+    frontier.build(ds, cfg, impl="cuda")          # the kernels load
+    torch.cuda.synchronize(dev)
+    explicit = [0]
+    real_sync = torch.cuda.synchronize
+
+    def counted_sync(*args, **kw):
+        explicit[0] += 1
+        return real_sync(*args, **kw)
+
+    def synchronising(tracer):
+        """The build's tree, and its synchronising calls by (file, line)
+        of the port ("synchronize": the explicit ones)."""
+        explicit[0] = 0
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                tree = frontier.build(ds, cfg, impl="cuda", tracer=tracer,
+                                      metrics=Registry() if tracer else None)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        sites = collections.Counter(
+            (Path(w.filename).name, w.lineno) for w in caught
+            if "synchroniz" in str(w.message)
+            and str(Path(w.filename).resolve()).startswith(port))
+        sites["synchronize"] = explicit[0]
+        return tree, +sites
+
+    monkeypatch.setattr(torch.cuda, "synchronize", counted_sync)
+    plain, untraced = synchronising(None)
+    tr = Tracer()
+    traced, with_tracer = synchronising(tr)
+    assert trees_equal(plain, traced)
+    n_steps = tr.span_summary()["superstep"]["count"]
+    extra = with_tracer - untraced
+    assert not untraced - with_tracer, (untraced, with_tracer)
+    assert sum(extra.values()) == 1, extra
+    assert next(iter(extra))[0] == "frontier.py", extra
+    waits = sum(n for (f, _), n in untraced.items()
+                if f in ("frontier.py", "compaction.py"))
+    assert waits >= 4 * n_steps + 2, (untraced, n_steps)
 
 
 def test_concurrent_builds_from_threads(dev):

@@ -6,11 +6,16 @@ same sources: no source at all, a port ``Tracer`` and a JAX ``Tracer``
 holding the same event list, registries fed the same observations, and the
 same farm stats.  ``repro_torch.core.frontier.build(tracer=..., metrics=...)``
 must grow the untraced tree and the JAX traced build's tree
-(``impl="jnp"``, on the CPU), with the JAX rows on the JAX keys, one
-``superstep`` / ``splitPre`` / ``splitAtt`` / ``splitPost`` span a
-superstep, the JAX registry's counters and gauges, one
-``frontier_phase_seconds`` series a phase with a sample a superstep, and
-the JAX ``frontier.n_active`` counter values.  The report and tracing
+(``impl="jnp"``, on the CPU), with the JAX rows on the JAX keys, the JAX
+build's span names among its own (one ``superstep`` / ``splitPre`` /
+``splitAtt`` / ``splitPost`` span a superstep), the JAX registry's
+counters and gauges (and no ``frontier_phase_seconds``), and the JAX
+``frontier.n_active`` counter values.  Its span tree: ``entry.copy`` and
+``entry.init`` once, in each superstep one ``wait.frontier``,
+``wait.compact``, ``kernel.histogram``, ``kernel.split_gain``,
+``wait.status`` and ``wait.loop``, the root's status write and the loop's
+first test in ``entry.init``, one ``wait.stats`` after the loop, every span inside its parent on one thread; the
+statistics read once, not a superstep at a time.  The report and tracing
 cases of ``tests/test_obs.py`` run through the port.  The traced build on
 the card (``impl="cuda"``) is a ``cuda`` test in
 ``tests/test_torch_kernels_cuda.py``.
@@ -18,6 +23,7 @@ the card (``impl="cuda"``) is a ``cuda`` test in
 
 import numpy as np
 import pytest
+import torch
 
 from conftest import make_tree_dataset
 from repro.core import frontier as jfrontier
@@ -196,7 +202,7 @@ def test_traced_build_equals_untraced_and_jax(seed, n, cfg_kw):
 
     n_steps = len(stats)
     summ = tr.span_summary()
-    assert set(summ) == set(SPANS)
+    assert set(summ) >= set(jtr.span_summary()) >= set(SPANS)
     assert all(summ[s]["count"] == n_steps for s in SPANS)
     steps = [e["args"]["step"] for e in tr.events
              if e["ph"] == "X" and e["name"] == "superstep"]
@@ -206,10 +212,9 @@ def test_traced_build_equals_untraced_and_jax(seed, n, cfg_kw):
                                                     GAUGES_AND_COUNTERS)
     assert reg.snapshot()["frontier_supersteps_total"]["series"][0][
         "value"] == n_steps
-    phase = reg.snapshot()["frontier_phase_seconds"]["series"]
-    assert sorted(s["labels"]["phase"] for s in phase) == sorted(PHASES)
-    assert all(s["count"] == n_steps for s in phase)
-    assert set(reg.snapshot()) == set(jreg.snapshot())
+    assert "frontier_phase_seconds" not in reg.snapshot()
+    assert set(reg.snapshot()) == set(jreg.snapshot()) - {
+        "frontier_phase_seconds"}
 
     def n_active(t):
         return [v for _, v in t.counter_series()["frontier.n_active"]]
@@ -243,7 +248,7 @@ def test_collect_stats_alone_feeds_the_registry():
                                                     GAUGES_AND_COUNTERS)
     assert reg.snapshot()["frontier_supersteps_total"]["series"][0][
         "value"] == len(stats)
-    assert reg.snapshot()["frontier_phase_seconds"]["series"] == []
+    assert "frontier_phase_seconds" not in reg.snapshot()
 
 
 def test_untraced_build_feeds_no_registry():
@@ -263,3 +268,136 @@ def test_tracing_disabled_leaves_no_residue():
     b = frontier.build(ds, cfg, device="cpu", tracer=NULL)
     assert trees_equal(a, b)
     assert len(NULL.events) == n0
+
+
+# -------------------------------------------------- the traced build's spans
+
+# each span's parent: the spans of ``PARENTS`` at the build's top level
+PARENTS = {"splitPre": ("superstep",), "splitAtt": ("superstep",),
+           "splitPost": ("superstep",), "wait.frontier": ("splitPre",),
+           "wait.compact": ("splitAtt",), "kernel.histogram": ("splitAtt",),
+           "kernel.split_gain": ("splitAtt",),
+           "wait.status": ("splitPost", "entry.init"),
+           "wait.loop": ("superstep", "entry.init")}
+TOP = ("entry.copy", "entry.init", "superstep", "wait.stats")
+IN_SUPERSTEP = ("splitPre", "splitAtt", "splitPost", "wait.frontier",
+                "wait.compact", "kernel.histogram", "kernel.split_gain",
+                "wait.status", "wait.loop")
+
+
+def _inside(child, parent) -> bool:
+    return (child["tid"] == parent["tid"] and parent["ts"] <= child["ts"]
+            and child["ts"] + child["dur"] <= parent["ts"] + parent["dur"])
+
+
+@pytest.mark.parametrize("seed,n,cfg_kw", CASES)
+def test_traced_build_span_tree(seed, n, cfg_kw):
+    ds = make_tree_dataset(np.random.default_rng(seed), n=n)
+    tr = Tracer()
+    _, stats = frontier.build(ds, GrowConfig(**cfg_kw), device="cpu",
+                              collect_stats=True, tracer=tr,
+                              metrics=Registry())
+    n_steps = len(stats)
+    spans = [e for e in tr.events if e["ph"] == "X"]
+    by_name: dict[str, list[dict]] = {}
+    for e in spans:
+        by_name.setdefault(e["name"], []).append(e)
+    assert set(by_name) == set(TOP) | set(PARENTS)
+    for name in ("entry.copy", "entry.init", "wait.stats"):
+        assert len(by_name[name]) == 1, name
+    assert len(by_name["superstep"]) == n_steps
+    assert len(by_name["wait.loop"]) == n_steps + 1
+    assert len(by_name["wait.status"]) == n_steps + 1
+
+    # every span inside its parent, on the same thread; the top level in
+    # none of the others
+    for e in spans:
+        if e["name"] in PARENTS:
+            assert sum(_inside(e, p) for name in PARENTS[e["name"]]
+                       for p in by_name[name]) == 1, e
+        else:
+            assert not any(_inside(e, p) for p in spans if p is not e), e
+    (init,) = by_name["entry.init"]
+    for name in ("wait.status", "wait.loop"):
+        assert sum(_inside(e, init) for e in by_name[name]) == 1, name
+    assert by_name["entry.copy"][0]["ts"] < init["ts"]
+    assert by_name["wait.stats"][0]["ts"] > max(
+        e["ts"] + e["dur"] for e in by_name["superstep"])
+
+    # a superstep: one of each, the loop's test after splitPost
+    for step in by_name["superstep"]:
+        held = {name: [e for e in by_name[name] if _inside(e, step)]
+                for name in IN_SUPERSTEP}
+        assert all(len(v) == 1 for v in held.values()), (step, held)
+        post = held["splitPost"][0]
+        assert held["wait.loop"][0]["ts"] >= post["ts"] + post["dur"]
+
+    # the counter samples: a superstep's n_active at its start
+    samples = tr.counter_series()["frontier.n_active"]
+    assert [ts for ts, _ in samples] == [e["ts"]
+                                         for e in by_name["superstep"]]
+    assert [v["value"] for _, v in samples] == [r["n_active"]
+                                                for r in stats]
+
+
+@pytest.mark.parametrize("collect_stats", [False, True])
+def test_traced_build_reads_the_statistics_once(monkeypatch, collect_stats):
+    """Under a Tracer no superstep reads its statistics (no ``.item()``);
+    one read after the loop gives the rows the untraced build reads a
+    superstep at a time, value for value and type for type."""
+    ds = make_tree_dataset(np.random.default_rng(5), n=300)
+    cfg = GrowConfig(max_nodes=4096, frontier_slots=8)
+    _, want = frontier.build(ds, cfg, device="cpu", collect_stats=True,
+                             metrics=Registry())
+    calls = {"item": 0, "read": 0}
+    item, read = torch.Tensor.item, frontier._read_stats
+
+    def counted_item(self):
+        calls["item"] += 1
+        return item(self)
+
+    def counted_read(pending):
+        calls["read"] += 1
+        return read(pending)
+    monkeypatch.setattr(torch.Tensor, "item", counted_item)
+    monkeypatch.setattr(frontier, "_read_stats", counted_read)
+    out = frontier.build(ds, cfg, device="cpu", collect_stats=collect_stats,
+                         tracer=Tracer(), metrics=Registry())
+    assert calls == {"item": 0, "read": 1}
+    if collect_stats:
+        rows = out[1]
+        assert rows == want
+        assert [[type(v) for v in r.values()] for r in rows] == [
+            [type(v) for v in r.values()] for r in want]
+
+
+def test_untraced_build_reads_the_statistics_each_superstep(monkeypatch):
+    """Without a Tracer ``collect_stats`` reads a superstep's statistics
+    after it, as before: ``.item()`` a value, no deferred read."""
+    ds = make_tree_dataset(np.random.default_rng(5), n=300)
+    cfg = GrowConfig(max_nodes=4096, frontier_slots=8)
+    calls = {"item": 0}
+    item = torch.Tensor.item
+
+    def counted_item(self):
+        calls["item"] += 1
+        return item(self)
+    monkeypatch.setattr(torch.Tensor, "item", counted_item)
+    monkeypatch.setattr(frontier, "_read_stats", None)
+    _, rows = frontier.build(ds, cfg, device="cpu", collect_stats=True,
+                             metrics=Registry())
+    assert calls["item"] == sum(len(r) for r in rows) > 0
+
+
+def test_counter_sample_takes_a_span_start():
+    tr = Tracer()
+    with tr.span("outer") as span:
+        tr.counter("c", value=1)
+    tr.counter("c", ts=span.ts, value=2)
+    (outer,) = [e for e in tr.events if e["ph"] == "X"]
+    assert span.ts == outer["ts"]
+    samples = tr.counter_series()["c"]
+    assert samples[0] == (outer["ts"], {"value": 2})
+    assert samples[1][1] == {"value": 1} and samples[1][0] > outer["ts"]
+    NULL.counter("c", ts=0.0, value=3)
+    assert "c" not in NULL.counter_series()
