@@ -8,25 +8,32 @@ Phases (each one that fails ends the run with a non-zero exit):
   0. device: needs CUDA; prints the card's name and power limit.
   1. build: compiles the CUDA kernels of src/repro_torch/kernels/csrc with
      nvcc (sm_90a) into build/kernels/ and prints the build time: the
-     histogram, split gain, forest traversal, flash-attention forward and
-     flash-attention backward.
+     histogram, split gain, splitPost's two kernels, forest traversal,
+     flash-attention forward and flash-attention backward.
   2. kernels: each kernel's wrapper against its plain torch version on the
      card, at the shapes of the SyD10M9A build and at edge shapes; times the
      kernel, the plain version and the library call.  The histogram also in
      each regime of its plan (every case in one slot, 20% live over 256
      slots compacted, census_pums' shape in one slot and over 256, K = 1,
      N = 1), each timed beside its bound with the plan it took; split gain
-     timed by the profiler (its kernel alone).
+     timed by the profiler (its kernel alone).  splitPost's two kernels
+     against the plain split_post on clones of one state at the build's
+     root superstep (N 10M, K 256) and at superstep SPLIT_POST_DEEP_STEP:
+     every node array, status, active row, case node, n_nodes, overflow
+     and statistic exact, two launches each; timed (CUDA events behind a
+     spin, the profiler beside them) against the plain version's kernels
+     and their bound.
   3. SyD10M9A at full size (10,000,000 cases, 9 attributes, 256 bins) grown
      with the defaults (the CUDA kernels) and collect_stats=True; both
-     kernels must have been launched by that build.  Then one timed build
+     splitAtt kernels must have been launched by that build, and splitPost's
+     two kernels twice a superstep.  Then one timed build
      each of the defaults and of impl="torch" on the same card, both without
      stats; all three trees must be equal.  Then one traced build
      (impl="cuda", a fresh Tracer and Registry, collect_stats=True): its
      tree must equal theirs, its superstep and splitAtt spans and
      frontier_supersteps_total must be its supersteps, and its histogram
      and split-gain launches those supersteps (with live cases, for the
-     histogram).  Prints the time of each phase (splitPre, splitAtt,
+     histogram) and its splitPost launches twice as many.  Prints the time of each phase (splitPre, splitAtt,
      splitPost: the host's time in it, its own waits included) beside the
      untraced wall time and the text report, and writes the Chrome trace to
      build/trace_syd10m9a.json.
@@ -207,6 +214,7 @@ configuration (repro_torch.configs.yadt.WORKLOAD.grow) are the port's.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import shutil
 import re
@@ -227,6 +235,9 @@ SYD_BINS = 256
 SYD_SEED = 0
 CENSUS_SCALE = 1.0
 CENSUS_BINS = 128
+# Phase 2's deep splitPost superstep of the SyD10M9A build: all 256 slots
+# open, about 0.2% of the cases live (21,620 in an H100 run)
+SPLIT_POST_DEEP_STEP = 500
 # The forest of phases 5 and 6: the ForestConfig defaults (seed 0,
 # bootstrap, mtry = ceil(sqrt(A))) at 16 trees, trained by the farm's 4
 # workers; members grown alone against it; 4 trees on census_pums.
@@ -539,6 +550,25 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def queued_ms(fn, reps: int, spin_cycles: int = 2_000_000) -> float:
+    """Mean device time of one call of ``fn``: CUDA events around ``reps``
+    back-to-back calls queued behind a spin of the card (``spin_cycles`` a
+    call, about 1 ms at the H100's clocks), so that the host's launch cost
+    does not show (``fn`` must launch only the timed work)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(reps * spin_cycles)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def _timed(fn):
     """(fn(), its wall seconds), the card waited for on both sides."""
     import torch
@@ -787,6 +817,122 @@ def check_split_gain(sub_hist, cont, nb, n_bins, gen, dev):
         library_ms=None, shape=dict(K=k, A=a_dim, B=n_bins, C=c))
 
 
+def _clone_state(state):
+    from repro_torch.core import frontier
+    tree = dataclasses.replace(state.tree, **{
+        f.name: getattr(state.tree, f.name).clone()
+        for f in dataclasses.fields(state.tree)})
+    return frontier.GrowState(
+        tree=tree, **{f: getattr(state, f).clone() for f in (
+            "status", "active", "case_node", "n_nodes", "overflow")})
+
+
+def _same_post(want, got, m: int, where: str) -> None:
+    """Two splitPosts' ``(state, stats)``: every node array, status and
+    active row below the dump row M, every case's node, n_nodes, overflow
+    and statistic exactly equal."""
+    import torch
+    (ws, wstats), (gs, gstats) = want, got
+    for f in ("node_attr", "node_split_bin", "node_child0", "node_nchild",
+              "node_class", "node_freq", "node_depth"):
+        check(torch.equal(getattr(gs.tree, f)[:m], getattr(ws.tree, f)[:m]),
+              f"split_post {f} != plain at {where}")
+    for f in ("status", "active"):
+        check(torch.equal(getattr(gs, f)[:m], getattr(ws, f)[:m]),
+              f"split_post {f} != plain at {where}")
+    check(torch.equal(gs.case_node, ws.case_node),
+          f"split_post case_node != plain at {where}")
+    check(int(gs.n_nodes) == int(ws.n_nodes)
+          and bool(gs.overflow) == bool(ws.overflow),
+          f"split_post n_nodes / overflow != plain at {where}")
+    want_s = {k: v.item() for k, v in wstats.items()}
+    got_s = {k: v.item() for k, v in gstats.items()}
+    check(got_s == want_s, f"split_post statistics {got_s} != plain "
+          f"{want_s} at {where}")
+
+
+def check_split_post(syd, x, y, w, cont, nb, cfg, dev) -> dict:
+    """splitPost's two kernels against the plain ``split_post`` on clones
+    of one state, at SyD10M9A's root superstep (every case live, K slots)
+    and at superstep SPLIT_POST_DEEP_STEP of the same build; each timed:
+    the kernels' device time (CUDA events behind a spin; the profiler's
+    beside it), a call's host wall time, the plain version's kernels
+    (profiler) and wall time, and the bound."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import frontier
+    from repro_torch.kernels import split_post
+    from repro_torch.launch import roofline as rl
+
+    prob = frontier.FrontierProblem.from_dataset(syd, cfg)
+    m = cfg.max_nodes
+    state = frontier.init_state(prob, y, w)
+    timed = []
+    for step in range(SPLIT_POST_DEEP_STEP + 1):
+        pre = frontier.split_pre(state, prob=prob)
+        att = frontier.split_att(state, pre, x, y, w, cont, nb, prob=prob,
+                                 impl="cuda")
+
+        def post(s, impl):
+            return frontier.split_post(s, pre, att, x, cont, nb, prob=prob,
+                                       impl=impl)
+        if step in (0, SPLIT_POST_DEEP_STEP):
+            where = f"superstep {step}"
+            before = split_post.LAUNCHES
+            want = post(_clone_state(state), "torch")
+            got = post(_clone_state(state), "cuda")
+            check(split_post.LAUNCHES == before + 2,
+                  f"split_post: {split_post.LAUNCHES - before} launches at "
+                  f"{where}, expected 2")
+            _same_post(want, got, m, where)
+            # the kernels read pre, att and the state's n_nodes and write
+            # the same values on every call: repeat them on one clone
+            s = _clone_state(state)
+            ms = queued_ms(lambda: post(s, "cuda"), 20)
+            prof_ms = kernel_ms(lambda: post(s, "cuda"), "split_post_",
+                                reps=20)
+            _, call_s = _timed(lambda: post(s, "cuda"))
+            plains = [_clone_state(state) for _ in range(3)]
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for p in plains:
+                    post(p, "torch")
+                torch.cuda.synchronize()
+            evs = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+            plain_ms = sum(e.self_device_time_total for e in evs) / 1e3 / 3
+            _, plain_s = _timed(lambda: post(_clone_state(state), "torch"))
+            live = int((pre["slot"] >= 0).sum())
+            b_ms, b_by = bound(rl.split_post_bytes(prob.n_cases, live), 0)
+            timed.append(dict(
+                superstep=step, open=pre["n_open"], live_cases=live, ms=ms,
+                profiler_ms=prof_ms, call_ms=call_s * 1e3, plain_ms=plain_ms,
+                plain_kernels=len(evs), plain_call_ms=plain_s * 1e3,
+                bound_ms=b_ms, bound_by=b_by))
+            print(f"split_post at {where}: {pre['n_open']} open, {live} live "
+                  f"cases: {ms:.4f} ms (profiler {prof_ms:.4f}; a call "
+                  f"{call_s * 1e3:.3f} ms wall), plain {plain_ms:.4f} ms in "
+                  f"{len(evs)} kernels ({plain_s * 1e3:.3f} ms wall), bound "
+                  f"{b_ms:.5f} by {b_by}")
+            del s, plains, want, got
+        state, _ = post(state, "cuda")
+    check(bool(torch.any(state.status[:m] == frontier.GrowState.STATUS_OPEN)),
+          f"split_post: the build ended before superstep "
+          f"{SPLIT_POST_DEEP_STEP}")
+    root = timed[0]
+    return dict(
+        name="split_post", route="cuda",
+        source="src/repro_torch/kernels/csrc/split_post.cu",
+        replaces=None, jax="repro.core.frontier.split_post (jnp, no kernel)",
+        max_abs_err=0.0, ms=root["ms"], kernel_ms=root["ms"],
+        call_ms=root["call_ms"], plain_ms=root["plain_ms"],
+        bound_ms=root["bound_ms"], bound_by=root["bound_by"],
+        library_ms=None,
+        shape=dict(N=prob.n_cases, A=prob.n_attrs, K=cfg.frontier_slots,
+                   C=prob.n_classes, H=prob.max_children, M=m),
+        supersteps=timed)
+
+
 # --------------------------------------------------------------------------
 # phases 3 and 4: the main path
 # --------------------------------------------------------------------------
@@ -803,20 +949,25 @@ def _timed_build(ds, cfg, **kw):
 
 def grow_both(name, ds, cfg, dev) -> tuple[dict, object, dict]:
     """Grow with the defaults (CUDA kernels) and with impl="torch" on the
-    card; the trees must be equal.  Returns the launch counts of the first
+    card; the trees must be equal, and the first build must launch
+    splitPost's kernels twice a superstep.  Returns the launch counts of the first
     build (the main path's run), its tree and what was measured."""
     import numpy as np
     from repro_torch.core import frontier
     from repro_torch.core.tree import predict, trees_equal
-    from repro_torch.kernels import histogram, split_gain
+    from repro_torch.kernels import histogram, split_gain, split_post
 
-    histogram.LAUNCHES = split_gain.LAUNCHES = 0
+    histogram.LAUNCHES = split_gain.LAUNCHES = split_post.LAUNCHES = 0
     tree, stats = frontier.build(ds, cfg, collect_stats=True)
     launches = dict(frontier_histogram=histogram.LAUNCHES,
-                    split_gain=split_gain.LAUNCHES)
+                    split_gain=split_gain.LAUNCHES,
+                    split_post=split_post.LAUNCHES)
     live_steps = sum(1 for r in stats if r["n_active"] > 0)
     check(launches["frontier_histogram"] > 0 and launches["split_gain"] > 0,
           f"{name}: a kernel was not launched by the build: {launches}")
+    check(launches["split_post"] == 2 * len(stats),
+          f"{name}: {launches['split_post']} splitPost launches for "
+          f"{len(stats)} supersteps (two a superstep)")
     check(launches["frontier_histogram"] >= live_steps,
           f"{name}: {launches['frontier_histogram']} histogram launches for "
           f"{live_steps} supersteps with live cases")
@@ -856,20 +1007,21 @@ def traced_build(name, ds, cfg, tree, info) -> dict:
     Tracer and Registry and collect_stats=True.  Its tree must equal
     ``tree`` (which ``grow_both`` held to its other builds), its spans
     and ``frontier_supersteps_total`` its supersteps, and its kernel
-    launches those supersteps.  Prints each phase's time beside the
+    launches those supersteps (splitPost's two a superstep).  Prints each phase's time beside the
     untraced build's wall time and the text report; writes the Chrome
     trace under build/."""
     from repro_torch.core import frontier
     from repro_torch.core.tree import trees_equal
-    from repro_torch.kernels import histogram, split_gain
+    from repro_torch.kernels import histogram, split_gain, split_post
     from repro_torch.obs import Registry, Tracer, report
 
     tr, reg = Tracer(), Registry()
-    histogram.LAUNCHES = split_gain.LAUNCHES = 0
+    histogram.LAUNCHES = split_gain.LAUNCHES = split_post.LAUNCHES = 0
     (traced, rows), wall = _timed(lambda: frontier.build(
         ds, cfg, impl="cuda", collect_stats=True, tracer=tr, metrics=reg))
     launches = dict(frontier_histogram=histogram.LAUNCHES,
-                    split_gain=split_gain.LAUNCHES)
+                    split_gain=split_gain.LAUNCHES,
+                    split_post=split_post.LAUNCHES)
     check(trees_equal(traced, tree), f"{name}: the traced build's tree != "
           f"the untraced builds' tree")
     steps = len(rows)
@@ -884,7 +1036,8 @@ def traced_build(name, ds, cfg, tree, info) -> dict:
     check(counted == steps, f"{name}: frontier_supersteps_total {counted} "
           f"for {steps} supersteps")
     live = sum(1 for r in rows if r["n_active"] > 0)
-    check(launches == dict(frontier_histogram=live, split_gain=steps),
+    check(launches == dict(frontier_histogram=live, split_gain=steps,
+                           split_post=2 * steps),
           f"{name}: traced build launches {launches} != its {steps} "
           f"supersteps ({live} with live cases)")
     path = ROOT / "build" / f"trace_{name}.json"
@@ -972,22 +1125,24 @@ def train_syd_forest(syd, cfg, dev):
     import torch
     from repro_torch.core.tree import trees_equal
     from repro_torch.ensemble import trainer
-    from repro_torch.kernels import histogram, split_gain
+    from repro_torch.kernels import histogram, split_gain, split_post
 
     fc = trainer.ForestConfig(n_trees=FOREST_TREES, seed=FOREST_SEED,
                               grow=cfg)
     with SuperstepCount() as steps:
-        histogram.LAUNCHES = split_gain.LAUNCHES = 0
+        histogram.LAUNCHES = split_gain.LAUNCHES = split_post.LAUNCHES = 0
         (result, train_s) = _timed(lambda: trainer.train_forest(
             syd, fc, impl="frontier", n_workers=FOREST_WORKERS, device=dev))
         launches = dict(frontier_histogram=histogram.LAUNCHES,
-                        split_gain=split_gain.LAUNCHES)
+                        split_gain=split_gain.LAUNCHES,
+                        split_post=split_post.LAUNCHES)
     check(result.tree_ids == list(range(FOREST_TREES))
           and not result.quarantined,
           f"trained trees {result.tree_ids}, quarantined "
           f"{result.quarantined}")
     check(launches == dict(frontier_histogram=steps.live,
-                           split_gain=steps.steps),
+                           split_gain=steps.steps,
+                           split_post=2 * steps.steps),
           f"training launches {launches} != its {steps.steps} supersteps "
           f"({steps.live} with live cases)")
     alone_s = {}
@@ -2201,7 +2356,8 @@ def dryrun_cells(card: str) -> dict:
 
     import torch
     from repro_torch.configs import base
-    from repro_torch.kernels import flash_attention, histogram, split_gain
+    from repro_torch.kernels import (flash_attention, histogram, split_gain,
+                                     split_post)
     from repro_torch.launch import dryrun
 
     jobs = [(a, s, None) for a, s in dryrun.cells_to_run()]
@@ -2218,11 +2374,13 @@ def dryrun_cells(card: str) -> dict:
             key = f"{arch}/{shape}"
             flash_attention.reset_launches()
             histogram.LAUNCHES = split_gain.LAUNCHES = 0
+            split_post.LAUNCHES = 0
             r = dryrun.run_cell(arch, shape, device="cuda", batch=batch,
                                 verbose=False)
             r["launches"] = dict(
                 frontier_histogram=histogram.LAUNCHES,
                 split_gain=split_gain.LAUNCHES,
+                split_post=split_post.LAUNCHES,
                 flash_attention=flash_attention.LAUNCHES_BY_DTYPE["bfloat16"],
                 flash_attention_bwd=(
                     flash_attention.LAUNCHES_BWD_BY_DTYPE["bfloat16"]))
@@ -2253,9 +2411,11 @@ def dryrun_cells(card: str) -> dict:
                   f"{want['device_flops']} on meta at batch {r['batch']}")
         n = r["launches"]
         if arch == "yadt":
-            check(n["frontier_histogram"] == n["split_gain"] == DRYRUN_RUNS,
+            check(n["frontier_histogram"] == n["split_gain"] == DRYRUN_RUNS
+                  and n["split_post"] == 2 * DRYRUN_RUNS,
                   f"dry run {key}: launches {n}, expected {DRYRUN_RUNS} "
-                  f"histograms and split gains (one a superstep)")
+                  f"histograms and split gains (one a superstep) and "
+                  f"{2 * DRYRUN_RUNS} splitPost kernels (two a superstep)")
         elif shape == "prefill_32k":
             layers = base.get_config(arch).n_layers
             check(n["flash_attention"] == layers * DRYRUN_RUNS,
@@ -2680,9 +2840,12 @@ def main() -> int:
         x, y, w, syd.max_bins, syd.n_classes, WORKLOAD.grow.frontier_slots,
         gen, dev)
     gain_rec = check_split_gain(sub_hist, cont, nb, syd.max_bins, gen, dev)
+    del sub_hist
+    torch.cuda.empty_cache()
+    post_rec = check_split_post(syd, x, y, w, cont, nb, WORKLOAD.grow, dev)
     torch.cuda.synchronize()
     times["kernel_checks_s"] = time.perf_counter() - t0
-    del x, y, w, sub_hist
+    del x, y, w
     torch.cuda.empty_cache()
 
     # ---- 3. SyD10M9A, the build path
@@ -2727,8 +2890,9 @@ def main() -> int:
     # the training path's launches (phase 5), and each path's
     hist_rec["launches"] = trained["launches"]["frontier_histogram"]
     gain_rec["launches"] = trained["launches"]["split_gain"]
+    post_rec["launches"] = trained["launches"]["split_post"]
     for rec, key in ((hist_rec, "frontier_histogram"),
-                     (gain_rec, "split_gain")):
+                     (gain_rec, "split_gain"), (post_rec, "split_post")):
         rec["launches_by_path"] = dict(build=build_launches[key],
                                        traced_build=traced["launches"][key],
                                        train_forest=trained["launches"][key])
@@ -2811,9 +2975,11 @@ def main() -> int:
     times["dryrun_s"] = time.perf_counter() - t0
     dry_launches = {k: sum(r["launches"][k] for r in dry["on_card"].values())
                     for k in ("frontier_histogram", "split_gain",
-                              "flash_attention", "flash_attention_bwd")}
+                              "split_post", "flash_attention",
+                              "flash_attention_bwd")}
     for rec, key in ((hist_rec, "frontier_histogram"),
-                     (gain_rec, "split_gain"), (flash_rec, "flash_attention"),
+                     (gain_rec, "split_gain"), (post_rec, "split_post"),
+                     (flash_rec, "flash_attention"),
                      (bwd_rec, "flash_attention_bwd")):
         rec["launches_by_path"]["dryrun"] = dry_launches[key]
     print(json.dumps({"dryrun": dry}))
@@ -2837,7 +3003,7 @@ def main() -> int:
         chaos=chaos)}))
     print(json.dumps({"phase_seconds": times}))
     print(json.dumps({"partitioned": part_run}))
-    print(json.dumps({"kernels": [hist_rec, gain_rec, infer_rec,
+    print(json.dumps({"kernels": [hist_rec, gain_rec, post_rec, infer_rec,
                                   flash_rec, bwd_rec]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

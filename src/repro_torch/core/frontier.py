@@ -13,7 +13,9 @@ contiguously in slot order, so node ids are the sequential oracle's
 breadth-first ids and trees compare elementwise with it.
 
 ``impl="cuda"`` runs splitAtt on the hand-written CUDA kernels (histogram,
-then the fused split gain); ``impl="torch"`` runs their plain versions.
+then the fused split gain) and splitPost on two more (the node results and
+children, then the cases' routing: ``kernels.split_post``); ``impl="torch"``
+runs their plain versions.
 With ``GrowConfig.compact`` set, both gather the live cases first.  Per-node
 state arrays carry one extra dump row (index M) that absorbs the writes of
 unused slots, in place of the JAX scatters' ``mode="drop"``; readers only
@@ -39,11 +41,13 @@ loop's first test), then a ``superstep`` span a superstep holding its
 test.  Each place the host waits for the card is a ``wait.*`` span around
 the read itself: ``wait.loop`` (the loop's test), ``wait.frontier``
 (splitPre's ``nonzero``), ``wait.compact`` (the compaction's
-``nonzero``), ``wait.status`` (a status written from a host scalar, which
-torch copies to the device and waits for: the root's in the initial
-state, the new children's in splitPost) and ``wait.stats`` (the one read
-of every superstep's statistics, after the loop).  ``kernel.histogram`` and
-``kernel.split_gain`` time the host's calls of splitAtt's two kernels.
+``nonzero``), ``wait.status`` (the root's status, written from a host
+scalar in the initial state, which torch copies to the device and waits
+for; the plain splitPost writes the new children's so too, the CUDA
+splitPost in its node kernel, ``kernels.split_post``) and ``wait.stats``
+(the one read of every superstep's statistics, after the loop).
+``kernel.histogram`` and ``kernel.split_gain`` time the host's calls of
+splitAtt's two kernels, ``kernel.split_post`` those of splitPost's two.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ from repro_torch.core.config import GrowConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.tree import Tree
 from repro_torch.kernels import compaction, histogram, ref, split_gain
+from repro_torch.kernels import split_post as post_kernels
 from repro_torch.kernels._dtensor import is_dtensor
 from repro_torch.obs.trace import NULL
 from repro_torch.sharding.act import (active_cases_sharded, replicate,
@@ -297,26 +302,36 @@ def split_att(state: GrowState, pre: dict, x: torch.Tensor, y: torch.Tensor,
 
 def split_post(state: GrowState, pre: dict, att: dict, x: torch.Tensor,
                attr_is_cont: torch.Tensor, n_bins: torch.Tensor, *,
-               prob: FrontierProblem, tracer=NULL
+               prob: FrontierProblem, impl: str = "torch", tracer=NULL
                ) -> tuple[GrowState, dict[str, torch.Tensor]]:
-    """Argmax done: allocate children, scatter results, route cases.  Of a
-    partitioned state, on each rank's local tensors (the module's
-    docstring); ``n_active`` is then a partial count."""
+    """Argmax done: allocate children, scatter results, route cases.
+    ``impl="cuda"`` runs the two CUDA kernels (:func:`_split_post_cuda`),
+    ``impl="torch"`` the plain version below.  Of a partitioned state, on
+    each rank's local tensors (the module's docstring; CPU shards take the
+    plain version, as the kernel ops' CPU shards do); ``n_active`` is then
+    a partial count."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; choose from {IMPLS}")
     if is_dtensor(state.case_node):
         from torch.distributed.tensor import DTensor, Partial, Replicate
         cases = state.case_node
+        x_own = _own(x, cases)
         local, stats = split_post(
             _local_state(state),
             {k: _own(v, cases) if k == "slot" else _whole(v)
              for k, v in pre.items()},
-            {k: _whole(v) for k, v in att.items()}, _own(x, cases),
-            _whole(attr_is_cont), _whole(n_bins), prob=prob, tracer=tracer)
+            {k: _whole(v) for k, v in att.items()}, x_own,
+            _whole(attr_is_cont), _whole(n_bins), prob=prob,
+            impl=impl if x_own.is_cuda else "torch", tracer=tracer)
         stats = {k: _as_replicated(v, cases) for k, v in stats.items()}
         stats["n_active"] = DTensor.from_local(
             stats["n_active"].to_local(), cases.device_mesh,
             [Partial() if p.is_shard() else Replicate()
              for p in cases.placements], run_check=False)
         return _laid_state(local, cases), stats
+    if impl == "cuda":
+        return _split_post_cuda(state, pre, att, x, attr_is_cont, n_bins,
+                                prob=prob, tracer=tracer)
     cfg = prob.cfg
     m, k = cfg.max_nodes, cfg.frontier_slots
     a_dim, c_dim, h_dim = prob.n_attrs, prob.n_classes, prob.max_children
@@ -431,6 +446,29 @@ def split_post(state: GrowState, pre: dict, att: dict, x: torch.Tensor,
     return new_state, stats
 
 
+def _split_post_cuda(state: GrowState, pre: dict, att: dict,
+                     x: torch.Tensor, attr_is_cont: torch.Tensor,
+                     n_bins: torch.Tensor, *, prob: FrontierProblem,
+                     tracer=NULL
+                     ) -> tuple[GrowState, dict[str, torch.Tensor]]:
+    """splitPost on two kernels (``kernels.split_post``): the node arrays,
+    ``status``, ``active`` and ``case_node`` updated in place; ``n_nodes``,
+    ``overflow`` and the statistics views of the node kernel's output.
+    Nothing waits for the card."""
+    cfg = prob.cfg
+    with tracer.span("kernel.split_post"):
+        n_nodes, overflow, stats = post_kernels.split_post(
+            state.tree, state.status, state.active, state.case_node,
+            state.n_nodes, state.overflow, pre, att, x, attr_is_cont,
+            n_bins, cost_model=cfg.cost_model,
+            n_total_cases=float(prob.n_cases), alpha=cfg.alpha)
+    tree = state.tree
+    tree.n_nodes = n_nodes
+    return GrowState(tree=tree, status=state.status, active=state.active,
+                     case_node=state.case_node, n_nodes=n_nodes,
+                     overflow=overflow), stats
+
+
 def superstep(state: GrowState, x: torch.Tensor, y: torch.Tensor,
               w: torch.Tensor, attr_is_cont: torch.Tensor,
               n_bins: torch.Tensor, *, prob: FrontierProblem,
@@ -438,8 +476,8 @@ def superstep(state: GrowState, x: torch.Tensor, y: torch.Tensor,
               ) -> tuple[GrowState, dict[str, torch.Tensor]]:
     """One superstep: splitPre -> splitAtt -> splitPost, each a span of
     ``tracer`` (the host's time in the phase, the waits it makes itself
-    included).  Updates the state's node arrays in place and returns the
-    new state."""
+    included).  Updates the state's node arrays in place (on
+    ``impl="cuda"`` its cases' nodes too) and returns the new state."""
     with tracer.span("splitPre"):
         pre = split_pre(state, prob=prob, tracer=tracer)
     with tracer.span("splitAtt"):
@@ -447,7 +485,7 @@ def superstep(state: GrowState, x: torch.Tensor, y: torch.Tensor,
                         prob=prob, impl=impl, tracer=tracer)
     with tracer.span("splitPost"):
         return split_post(state, pre, att, x, attr_is_cont, n_bins,
-                          prob=prob, tracer=tracer)
+                          prob=prob, impl=impl, tracer=tracer)
 
 
 # --------------------------------------------------------------------------

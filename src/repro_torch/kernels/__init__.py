@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels: the splitAtt hot spot, forest inference and
-the flash-attention forward of the LM prefill.
+"""Hand-written CUDA kernels: the splitAtt hot spot, splitPost, forest
+inference and the flash-attention forward of the LM prefill.
 
 :mod:`.histogram`, :mod:`.split_gain`, :mod:`.tree_infer` and
 :mod:`.flash_attention` launch the kernels on CUDA tensors; :mod:`.ref`
@@ -12,4 +12,7 @@ feeds the histogram only the live cases; :mod:`._build` compiles
 and counts the kernel's own work (``launch.roofline``); on DTensors it
 runs on each rank's shards by its registered sharding strategy
 (:mod:`._dtensor`: CPU shards reach the op's plain CPU kernel).
+:mod:`.split_post` is the exception: splitPost's two kernels update the
+frontier engine's state in place, a plain call with no custom op; its
+plain version is the torch body of ``core.frontier.split_post``.
 """

@@ -20,8 +20,8 @@ import tempfile
 import threading
 from pathlib import Path
 
-KERNELS = ("histogram", "split_gain", "tree_infer", "flash_attention",
-           "flash_attention_bwd")
+KERNELS = ("histogram", "split_gain", "split_post", "tree_infer",
+           "flash_attention", "flash_attention_bwd")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -29,7 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-fPIC")
 # -fmad=false: no fused multiply-add contraction, so the split-gain kernel
 # rounds every product and sum as its torch specification does (and the
-# histogram and traversal kernels, built so since they were written).  The
+# histogram, splitPost and traversal kernels, built so since they were
+# written).  The
 # flash kernels (forward and backward) are chains of dot products: they keep
 # the contraction, which halves their instruction count, and are held to a
 # tolerance.

@@ -1,0 +1,192 @@
+"""Wrapper of the CUDA splitPost kernels (``csrc/split_post.cu``).
+
+A superstep's splitPost in two launches on the current stream: the node
+kernel (one block a slot: the node rows, the children, the statistics),
+then the routing kernel (one pass over the cases).  No TPU kernel stands
+behind it: the JAX package's splitPost is jnp under its jitted superstep.
+CUDA tensors only; the plain version is the torch body of
+:func:`repro_torch.core.frontier.split_post` (``impl="torch"``).
+
+It updates the state in place, as the plain version updates the node
+arrays: the node arrays, ``status``, ``active`` and ``case_node``.  The
+new ``n_nodes``, ``overflow`` and the superstep's statistics are 0-d views
+of one small int32 tensor the node kernel writes, so nothing is read back
+to the host and nothing waits.  No custom op: only the frontier engine
+calls it, on a state it owns.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from repro_torch.kernels import _build
+
+# Launches of the two kernels in this process (the main path's proof of
+# use: two a superstep).
+LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()
+
+# The statistics' words in the node kernel's output, then the new n_nodes.
+STATS = ("n_processed", "n_active", "n_internal", "n_children", "max_r",
+         "nap_nodes", "overflow")
+COST_MODELS = ("alpha", "nlogn", "nsq")        # core.cost_models' order
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+_NODE_ARGTYPES = ([_P] * 7 + [_L, _L, _P, _L, _L] + [_P] * 19 + [_I] * 6
+                  + [_F, _F, _P])
+_ROUTE_ARGTYPES = [_P] * 5 + [_L, _I, _I, _P]
+
+# (name, dtype) of the per-slot inputs: splitPre's, then splitAtt's
+_PRE = (("ids", torch.int64), ("valid", torch.bool), ("ids_safe", torch.int64),
+        ("total_w", torch.float32), ("depth_k", torch.int32),
+        ("pre_leaf", torch.bool))
+_NODES = (("node_attr", torch.int32), ("node_split_bin", torch.int32),
+          ("node_child0", torch.int32), ("node_nchild", torch.int32),
+          ("node_class", torch.int32), ("node_depth", torch.int32))
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("split_post")
+    lib.split_post_nodes_launch.argtypes = _NODE_ARGTYPES
+    lib.split_post_nodes_launch.restype = ctypes.c_int
+    lib.split_post_route_launch.argtypes = _ROUTE_ARGTYPES
+    lib.split_post_route_launch.restype = ctypes.c_int
+    lib.split_post_error.argtypes = [ctypes.c_int]
+    lib.split_post_error.restype = ctypes.c_char_p
+    return lib
+
+
+def _count() -> None:
+    """Count one launch."""
+    global LAUNCHES
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(
+            f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def split_post(tree, status: torch.Tensor, active: torch.Tensor,
+               case_node: torch.Tensor, n_nodes: torch.Tensor,
+               overflow: torch.Tensor, pre: dict, att: dict,
+               x: torch.Tensor, attr_is_cont: torch.Tensor,
+               n_bins: torch.Tensor, *, cost_model: str,
+               n_total_cases: float, alpha: float
+               ) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """splitPost of one superstep on the card: ``tree``'s node arrays
+    (M + 1 rows, row M the dump row), ``status``, ``active`` and
+    ``case_node`` updated in place from splitPre's ``pre`` and splitAtt's
+    ``att`` (the keys :func:`repro_torch.core.frontier.split_pre` and
+    ``split_att`` return).  Returns the new ``n_nodes``, the new
+    ``overflow`` and the statistics, the keys of :data:`STATS` (0-d int32
+    views, ``max_r`` float32, ``overflow`` bool).
+
+    ``cost_model``, ``n_total_cases`` and ``alpha`` are the NAP test's
+    (:func:`repro_torch.core.cost_models.build_att_test`)."""
+    if cost_model not in COST_MODELS:
+        raise ValueError(f"unknown cost model {cost_model!r}; choose from "
+                         f"{COST_MODELS}")
+    if x.ndim != 2:
+        raise ValueError(f"x must be (N, A), got shape {tuple(x.shape)}")
+    n, a_dim = x.shape
+    k = pre["ids"].shape[0]
+    m1 = status.shape[0]
+    hist, unknown = att["hist"], att["unknown"]
+    if hist.ndim != 4 or hist.dtype != torch.float32:
+        raise TypeError(f"hist must be f32 (K, A, B, C), got {hist.dtype} "
+                        f"{tuple(hist.shape)}")
+    b_dim, c_dim = hist.shape[2:]
+    if tuple(hist.shape[:2]) != (k, a_dim):
+        raise ValueError(f"hist has shape {tuple(hist.shape)}, expected "
+                         f"({k}, {a_dim}, B, C)")
+    if hist.stride(3) != 1 or hist.stride(2) != c_dim:
+        raise ValueError("hist must have contiguous (B, C) rows")
+    if unknown.dtype != torch.float32:
+        raise TypeError(f"unknown must be torch.float32, got {unknown.dtype}")
+    if tuple(unknown.shape) != (k, a_dim, c_dim) or unknown.stride(2) != 1:
+        raise ValueError(f"unknown must be ({k}, {a_dim}, {c_dim}) with "
+                         f"contiguous C, got {tuple(unknown.shape)}")
+    if k < 1 or a_dim < 1 or b_dim < 1 or c_dim < 1 or m1 < 2:
+        raise ValueError(f"empty splitPost: K {k}, A {a_dim}, B {b_dim}, "
+                         f"C {c_dim}, M + 1 {m1}")
+    for name, dtype in _PRE:
+        _check(pre[name], name, dtype, (k,))
+    _check(pre["slot"], "slot", torch.int32, (n,))
+    for name, dtype, shape in (
+            ("split_bin", torch.int32, (k, a_dim)),
+            ("active_k", torch.bool, (k, a_dim)),
+            ("best_attr", torch.int32, (k,)),
+            ("has_split", torch.bool, (k,))):
+        _check(att[name], name, dtype, shape)
+    for name, dtype in _NODES:
+        _check(getattr(tree, name), name, dtype, (m1,))
+    _check(tree.node_freq, "node_freq", torch.float32, (m1, c_dim))
+    _check(status, "status", torch.int32, (m1,))
+    _check(active, "active", torch.bool, (m1, a_dim))
+    _check(case_node, "case_node", torch.int32, (n,))
+    _check(n_nodes, "n_nodes", torch.int32, ())
+    _check(overflow, "overflow", torch.bool, ())
+    _check(x, "x", torch.int32, (n, a_dim))
+    _check(attr_is_cont, "attr_is_cont", torch.bool, (a_dim,))
+    _check(n_bins, "n_bins", torch.int32, (a_dim,))
+    dev = x.device
+    ins = [pre[name] for name, _ in _PRE] + [
+        pre["slot"], hist, unknown, status, active, case_node, n_nodes,
+        overflow, attr_is_cont, n_bins, tree.node_freq] + [
+        att[name] for name in ("split_bin", "active_k", "best_attr",
+                               "has_split")] + [
+        getattr(tree, name) for name, _ in _NODES]
+    if dev.type != "cuda" or any(t.device != dev for t in ins):
+        raise ValueError("the CUDA splitPost takes CUDA tensors on one "
+                         f"device, got {sorted({str(t.device) for t in ins})}")
+
+    route = torch.empty((k, 4), dtype=torch.int32, device=dev)
+    words = torch.empty((len(STATS) + 1,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        lib = _lib()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.split_post_nodes_launch(
+            *(pre[name].data_ptr() for name, _ in _PRE),
+            hist.data_ptr(), hist.stride(0), hist.stride(1),
+            unknown.data_ptr(), unknown.stride(0), unknown.stride(1),
+            *(att[name].data_ptr() for name in ("split_bin", "active_k",
+                                                "best_attr", "has_split")),
+            attr_is_cont.data_ptr(), n_bins.data_ptr(),
+            *(getattr(tree, name).data_ptr() for name in (
+                "node_attr", "node_split_bin", "node_child0", "node_nchild",
+                "node_class", "node_freq", "node_depth")),
+            status.data_ptr(), active.data_ptr(), n_nodes.data_ptr(),
+            overflow.data_ptr(), route.data_ptr(), words.data_ptr(),
+            k, a_dim, b_dim, c_dim, m1 - 1,
+            COST_MODELS.index(cost_model), float(n_total_cases),
+            float(alpha), stream)
+        if err:
+            raise RuntimeError("split_post node kernel launch failed: "
+                               + lib.split_post_error(err).decode())
+        _count()
+        err = lib.split_post_route_launch(
+            pre["slot"].data_ptr(), x.data_ptr(), route.data_ptr(),
+            case_node.data_ptr(), words.data_ptr(), n, a_dim, k, stream)
+        if err:
+            raise RuntimeError("split_post routing kernel launch failed: "
+                               + lib.split_post_error(err).decode())
+        _count()
+    w = words.unbind()
+    stats = dict(zip(STATS, w))
+    stats["max_r"] = w[STATS.index("max_r")].view(torch.float32)
+    i = STATS.index("overflow")
+    stats["overflow"] = words[i:i + 1].view(torch.bool)[0]
+    return w[len(STATS)], stats["overflow"], stats

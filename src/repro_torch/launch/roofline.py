@@ -154,6 +154,13 @@ def split_gain_ops(k: int, a: int, b: int, c: int) -> int:
     return k * a * b * (6 * c + 20)
 
 
+def split_post_bytes(n: int, live: int) -> int:
+    """splitPost's routing: each case's int32 slot read once; a live case's
+    bin of its node's split attribute read and its new node written (the
+    node kernel's K rows are negligible beside N)."""
+    return n * 4 + live * 8
+
+
 def traversal_bytes(n: int, a: int, t: int, rows: int) -> int:
     """The N case rows, ``rows`` node-table rows (32 bytes) and the (T, N)
     labels, once each."""

@@ -253,9 +253,10 @@ def _yadt_cell(shape_name: str, mesh, *, device="meta") -> Cell:
                                   overflow=rep)
 
     def superstep(state, x, y, w, cont, nb):
-        # The port's superstep updates the node arrays in place: a copy
-        # makes the step a function of its arguments, as the JAX cell's
-        # is, so every call runs the same root superstep.
+        # The port's superstep updates the node arrays (and on the card
+        # the cases' nodes) in place: a copy makes the step a function of
+        # its arguments, as the JAX cell's is, so every call runs the same
+        # root superstep.
         return frontier.superstep(_copy_state(state), x, y, w, cont, nb,
                                   prob=prob, impl="cuda")
 
@@ -275,7 +276,7 @@ def _copy_state(state):
         if isinstance(getattr(state.tree, f.name), torch.Tensor)})
     return frontier.GrowState(
         tree=tree, status=state.status.clone(), active=state.active.clone(),
-        case_node=state.case_node, n_nodes=state.n_nodes,
+        case_node=state.case_node.clone(), n_nodes=state.n_nodes,
         overflow=state.overflow)
 
 

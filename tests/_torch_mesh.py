@@ -428,7 +428,7 @@ def superstep_out(prob, state, data, mesh=None, steps: int = 2,
             att = frontier.split_att(state, pre, *data, prob=prob,
                                      impl=impl)
             state, _ = frontier.split_post(state, pre, att, data[0], data[3],
-                                           data[4], prob=prob)
+                                           data[4], prob=prob, impl=impl)
         hist = torch.cat([att["hist"], att["unknown"][:, :, None]], 2)
         scores = frontier._gains(att["hist"], pre["total_w"], data[3],
                                  data[4], prob=prob, impl=impl)

@@ -400,6 +400,7 @@ def _hammer(fn, calls=2_000):
 @pytest.mark.parametrize("module,counter,plans,key", [
     ("histogram", "LAUNCHES", "PLANS", "direct"),
     ("split_gain", "LAUNCHES", None, None),
+    ("split_post", "LAUNCHES", None, None),
     ("tree_infer", "LAUNCHES", "PLANS", "spread"),
     ("flash_attention", "LAUNCHES", "LAUNCHES_BY_DTYPE", "bfloat16"),
 ])

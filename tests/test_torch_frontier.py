@@ -140,3 +140,54 @@ def test_binning_matches_jax(rng):
             np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
         for ea, eb in zip(a.bin_edges, b.bin_edges):
             np.testing.assert_array_equal(ea, eb)
+
+
+def test_split_post_default_is_the_plain_version_and_matches_jax(rng):
+    """``split_post``'s impl defaults to "torch", the plain version.  Step
+    by step from the root, on the same splitPre / splitAtt planes, its
+    state and statistics equal the JAX package's splitPost: the node
+    arrays below the dump row, the statuses, the active attributes (a
+    discrete split attribute retired), the cases' nodes (unknown values to
+    the heaviest child), n_nodes and overflow, up to the capacity."""
+    import inspect
+
+    import jax.numpy as jnp
+    import torch
+    params = inspect.signature(frontier.split_post).parameters
+    assert params["impl"].default == "torch"
+    ds = make_tree_dataset(rng, 500, n_cont=3, n_disc=2, n_classes=3,
+                           unknown_frac=0.1)
+    kw = dict(max_nodes=48, frontier_slots=8)
+    jprob = jf.FrontierProblem.from_dataset(ds, JaxGrowConfig(**kw))
+    prob = frontier.FrontierProblem.from_dataset(_port(ds), GrowConfig(**kw))
+    cols = (ds.x, ds.y, ds.w, ds.attr_is_cont, ds.n_bins)
+    jdata = [jnp.asarray(a) for a in cols]
+    tdata = [torch.as_tensor(np.asarray(a, t)) for a, t in zip(
+        cols, (np.int32, np.int32, np.float32, bool, np.int32))]
+    jstate = jf.init_state(jprob, jdata[1], jdata[2])
+    state = frontier.init_state(prob, tdata[1], tdata[2])
+    m, steps, retired = kw["max_nodes"], 0, False
+    while bool(jnp.any(jstate.status == jf.GrowState.STATUS_OPEN)):
+        jpre = jf.split_pre(jstate, prob=jprob)
+        jatt = jf.split_att(jstate, jpre, *jdata, prob=jprob, impl="jnp")
+        jstate, jstats = jf.split_post(jstate, jpre, jatt, jdata[0],
+                                       jdata[3], jdata[4], prob=jprob)
+        pre = frontier.split_pre(state, prob=prob)
+        att = frontier.split_att(state, pre, *tdata, prob=prob, impl="torch")
+        state, stats = frontier.split_post(state, pre, att, tdata[0],
+                                           tdata[3], tdata[4], prob=prob)
+        for f in ("node_attr", "node_split_bin", "node_child0",
+                  "node_nchild", "node_class", "node_freq", "node_depth"):
+            np.testing.assert_array_equal(
+                getattr(state.tree, f)[:m].numpy(),
+                np.asarray(getattr(jstate.tree, f)), err_msg=f)
+        for f in ("status", "active", "case_node", "n_nodes", "overflow"):
+            got = getattr(state, f)
+            np.testing.assert_array_equal(
+                (got[:m] if got.ndim and f != "case_node" else got).numpy(),
+                np.asarray(getattr(jstate, f)), err_msg=f)
+        for key, v in jstats.items():
+            assert stats[key].item() == pytest.approx(float(v), rel=1e-6), key
+        retired |= bool((~state.active[:m][state.status[:m] > 0]).any())
+        steps += 1
+    assert steps > 2 and retired and bool(state.overflow)

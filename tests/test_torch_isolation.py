@@ -117,6 +117,103 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert histogram.LAUNCHES == 0 and split_gain.LAUNCHES == 0
 
 
+def _root_superstep():
+    """The tiny dataset's root state and its splitPre / splitAtt planes on
+    the CPU: ``(prob, state, pre, att, (x, y, w, cont, nb))``."""
+    from repro_torch.core import frontier
+    from repro_torch.core.config import GrowConfig
+    ds = _tiny_dataset()
+    prob = frontier.FrontierProblem.from_dataset(
+        ds, GrowConfig(max_nodes=64, frontier_slots=4))
+    data = (torch.as_tensor(ds.x, dtype=torch.int32),
+            torch.as_tensor(ds.y, dtype=torch.int32),
+            torch.as_tensor(ds.w, dtype=torch.float32),
+            torch.as_tensor(ds.attr_is_cont), torch.as_tensor(ds.n_bins))
+    state = frontier.init_state(prob, data[1], data[2])
+    pre = frontier.split_pre(state, prob=prob)
+    att = frontier.split_att(state, pre, *data, prob=prob, impl="torch")
+    return prob, state, pre, att, data
+
+
+def _post_args(state, pre, att, data, **swap):
+    """The CUDA splitPost wrapper's arguments for one superstep, with the
+    tensors named in ``swap`` (a state field, a key of ``pre`` or ``att``,
+    or ``x``) replaced."""
+    pre = {k: swap.get(k, v) for k, v in pre.items()}
+    att = {k: swap.get(k, v) for k, v in att.items()}
+    fields = ("status", "active", "case_node", "n_nodes", "overflow")
+    return ((state.tree, *(swap.get(f, getattr(state, f)) for f in fields),
+             pre, att, swap.get("x", data[0]), data[3], data[4]),
+            dict(cost_model="nsq", n_total_cases=64.0, alpha=1000.0))
+
+
+def test_split_post_wrapper_refuses_cpu_tensors():
+    """The CUDA splitPost takes CUDA tensors only, from the wrapper and
+    from frontier.split_post(impl="cuda") alike, and launches nothing."""
+    from repro_torch.core import frontier
+    from repro_torch.kernels import split_post
+    prob, state, pre, att, data = _root_superstep()
+    args, kw = _post_args(state, pre, att, data)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        split_post.split_post(*args, **kw)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        frontier.split_post(state, pre, att, data[0], data[3], data[4],
+                            prob=prob, impl="cuda")
+    with pytest.raises(ValueError, match="unknown cost model"):
+        split_post.split_post(*args, **dict(kw, cost_model="linear"))
+    with pytest.raises(ValueError, match="unknown impl"):
+        frontier.split_post(state, pre, att, data[0], data[3], data[4],
+                            prob=prob, impl="pallas")
+    assert split_post.LAUNCHES == 0
+
+
+@pytest.mark.parametrize("name,dtype", [
+    ("ids", torch.int32), ("valid", torch.uint8), ("total_w", torch.float64),
+    ("best_attr", torch.int64), ("split_bin", torch.int64),
+    ("status", torch.int64), ("case_node", torch.int64),
+    ("x", torch.float32)])
+def test_split_post_wrapper_refuses_a_wrong_dtype(name, dtype):
+    from repro_torch.kernels import split_post
+    _, state, pre, att, data = _root_superstep()
+    t = {**pre, **att, "x": data[0], "status": state.status,
+         "case_node": state.case_node}[name]
+    args, kw = _post_args(state, pre, att, data, **{name: t.to(dtype)})
+    with pytest.raises(TypeError, match=f"{name} must be"):
+        split_post.split_post(*args, **kw)
+    assert split_post.LAUNCHES == 0
+
+
+@pytest.mark.parametrize("name", ["x", "active", "active_k", "hist"])
+def test_split_post_wrapper_refuses_a_non_contiguous_input(name):
+    """A strided x, active plane or histogram is refused, never read with
+    the wrong layout."""
+    from repro_torch.kernels import split_post
+    _, state, pre, att, data = _root_superstep()
+    t = {"x": data[0], "active": state.active, "active_k": att["active_k"],
+         "hist": att["hist"]}[name]
+    # the same values, every other element of a tensor twice as wide
+    wide = torch.stack([t, t], -1).flatten(-2)[..., ::2]
+    assert torch.equal(wide, t) and not wide.is_contiguous()
+    args, kw = _post_args(state, pre, att, data, **{name: wide})
+    with pytest.raises(ValueError, match="contiguous"):
+        split_post.split_post(*args, **kw)
+    assert split_post.LAUNCHES == 0
+
+
+def test_superstep_torch_launches_no_kernel():
+    """superstep(impl="torch") and a CPU build run the plain splitPost:
+    no kernel of the three is launched."""
+    from repro_torch.core import frontier
+    from repro_torch.kernels import histogram, split_gain, split_post
+    prob, state, _, _, data = _root_superstep()
+    before = (histogram.LAUNCHES, split_gain.LAUNCHES, split_post.LAUNCHES)
+    state, stats = frontier.superstep(state, *data, prob=prob, impl="torch")
+    assert int(state.n_nodes) > 1 and int(stats["n_processed"]) == 1
+    frontier.build(_tiny_dataset(), device="cpu")
+    assert (histogram.LAUNCHES, split_gain.LAUNCHES,
+            split_post.LAUNCHES) == before
+
+
 def test_tree_and_lm_constructors_without_device_need_cuda():
     """Every public constructor defaults to the card: Tree.empty, the LM's
     init and params_from_jax, the serving Replica and launch.serve."""

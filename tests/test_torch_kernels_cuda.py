@@ -10,7 +10,9 @@ weights (device atomics add in no fixed order), in every regime of its plan
 and with each plan pinned.  Split gain: bins and the
 -inf pattern exact, scores within 1e-5 * (1 + |score|) (the discrete branch
 sums its bins in another order than torch.sum).  Forest traversal: labels
-exact.  Flash attention (bf16: the tensor-core kernel, f32: the scalar one):
+exact.  splitPost's two kernels: every node array, status, active row,
+case node and statistic exact against the plain ``split_post``.  Flash
+attention (bf16: the tensor-core kernel, f32: the scalar one):
 f32 atol 3e-5, bf16 atol 2e-2 (another summation order, P rounded to bf16
 before P . V; one bf16 rounding step of outputs near 1).  Its log-sum-exp
 atol 1e-4, the output unchanged bit for bit when it is written.  The
@@ -230,36 +232,258 @@ def test_build_cuda_equals_torch_on_the_card(dev):
         assert trees_equal(t_cuda, t_torch)
 
 
+def _clone_state(state):
+    from repro_torch.core import frontier
+    tree = dataclasses.replace(state.tree, **{
+        f.name: getattr(state.tree, f.name).clone()
+        for f in dataclasses.fields(state.tree)})
+    return frontier.GrowState(
+        tree=tree, **{f: getattr(state, f).clone() for f in (
+            "status", "active", "case_node", "n_nodes", "overflow")})
+
+
+def _split_post_both(state, pre, att, x, cont, nb, prob):
+    """The plain splitPost and the CUDA one from two copies of ``state``:
+    each one's ``(state, stats)``.  The CUDA one launches two kernels."""
+    from repro_torch.core import frontier
+    from repro_torch.kernels import split_post
+    plain = frontier.split_post(_clone_state(state), pre, att, x, cont, nb,
+                                prob=prob)
+    before = split_post.LAUNCHES
+    got = frontier.split_post(_clone_state(state), pre, att, x, cont, nb,
+                              prob=prob, impl="cuda")
+    torch.cuda.synchronize()
+    assert split_post.LAUNCHES == before + 2
+    return plain, got
+
+
+def _assert_same_post(plain, got, m):
+    """Every node array, status, active row below the dump row M, every
+    case's node, n_nodes, overflow and statistic exactly equal."""
+    (want, want_stats), (state, stats) = plain, got
+    for f in ("node_attr", "node_split_bin", "node_child0", "node_nchild",
+              "node_class", "node_freq", "node_depth"):
+        assert torch.equal(getattr(state.tree, f)[:m],
+                           getattr(want.tree, f)[:m]), f
+    for f in ("status", "active"):
+        assert torch.equal(getattr(state, f)[:m], getattr(want, f)[:m]), f
+    assert torch.equal(state.case_node, want.case_node)
+    assert int(state.n_nodes) == int(want.n_nodes)
+    assert int(state.tree.n_nodes) == int(want.n_nodes)
+    assert bool(state.overflow) == bool(want.overflow)
+    assert list(stats) == list(want_stats)
+    assert {k: v.item() for k, v in stats.items()} == {
+        k: v.item() for k, v in want_stats.items()}
+
+
+def _kdd_like(n, seed):
+    """A KDD-like data set: 41 attributes (34 continuous of 64 bins, 5%
+    unknown; 7 discrete of 3-70 values), 23 classes; the labels follow a
+    few attributes, with noise."""
+    from repro_torch.core import binning
+    rng = np.random.default_rng(seed)
+    cards = (3, 70, 11, 2, 40, 5, 23)
+    cont = rng.integers(0, 64, (n, 34))
+    cont[rng.random((n, 34)) < 0.05] = -1
+    disc = np.stack([rng.integers(0, c, n) for c in cards], 1)
+    y = (disc[:, 1] + cont[:, 0] // 8 + disc[:, 5] * 3) % 23
+    y = np.where(rng.random(n) < 0.1, rng.integers(0, 23, n), y)
+    return binning.from_binned(
+        np.concatenate([cont, disc], 1), y,
+        attr_is_cont=[True] * 34 + [False] * 7, n_bins=[64] * 34 + list(cards),
+        n_classes=23)
+
+
+def _post_walk_dataset(name):
+    from repro_torch.data import datasets
+    if name == "kdd_like":
+        return _kdd_like(20_000, 7)
+    name, scale = {"syd": ("syd10m9a", 0.001),
+                   "census": ("census_pums", 0.01)}[name]
+    return datasets.load(name, scale=scale, max_bins=64)
+
+
+@pytest.mark.parametrize("name,max_nodes,slots", [
+    ("syd", 1 << 12, 64), ("syd", 1 << 12, 8), ("kdd_like", 1 << 12, 32),
+    ("census", 1 << 14, 64), ("syd", 200, 16), ("kdd_like", 300, 64)],
+    ids=["syd", "syd-8-slots", "kdd_like", "census", "syd-capacity",
+         "kdd_like-capacity"])
+def test_split_post_kernels_equal_plain_every_superstep(dev, name, max_nodes,
+                                                        slots):
+    """Every superstep of a build, the CUDA splitPost against the plain
+    one from the same (state, pre, att): SyD's shapes (C 2, H 20, A 9), a
+    KDD-like C 23, H 70, A 41, census_pums; supersteps with fewer open
+    nodes than slots (invalid slots write the dump row), more open nodes
+    than slots, cases of slot -1, unknown bins, discrete attributes
+    retired, and the capacity hit (overflow)."""
+    from repro_torch.core import frontier
+    from repro_torch.core.config import GrowConfig
+    ds = _post_walk_dataset(name)
+    cfg = GrowConfig(max_nodes=max_nodes, frontier_slots=slots)
+    prob = frontier.FrontierProblem.from_dataset(ds, cfg)
+    x = torch.as_tensor(ds.x, dtype=torch.int32, device=dev)
+    y = torch.as_tensor(ds.y, dtype=torch.int32, device=dev)
+    w = torch.as_tensor(ds.w, dtype=torch.float32, device=dev)
+    cont = torch.as_tensor(ds.attr_is_cont, device=dev)
+    nb = torch.as_tensor(ds.n_bins, dtype=torch.int32, device=dev)
+    state = frontier.init_state(prob, y, w)
+    seen = dict(short=False, full=False, unknown=False, closed=False,
+                retired=False, overflow=False)
+    steps = 0
+    while bool(torch.any(state.status[:max_nodes] == 1)):
+        pre = frontier.split_pre(state, prob=prob)
+        att = frontier.split_att(state, pre, x, y, w, cont, nb, prob=prob,
+                                 impl="cuda")
+        plain, got = _split_post_both(state, pre, att, x, cont, nb, prob)
+        _assert_same_post(plain, got, max_nodes)
+        state = plain[0]
+        live = pre["slot"] >= 0
+        seen["short"] |= pre["n_open"] < slots
+        seen["full"] |= pre["n_open"] == slots
+        seen["unknown"] |= bool((x[live] < 0).any())
+        seen["closed"] |= bool((~live).any())
+        seen["retired"] |= bool((~state.active[:max_nodes][
+            state.status[:max_nodes] == 1]).any())
+        seen["overflow"] |= bool(state.overflow)
+        steps += 1
+    capped = max_nodes < 1000
+    assert steps > 1 and seen["short"] and seen["closed"], seen
+    assert seen["retired"] or capped, seen
+    assert seen["unknown"] or name != "kdd_like", seen
+    assert seen["overflow"] or not capped, seen
+    assert seen["full"] or slots == 64, seen
+
+
+@pytest.mark.parametrize("model", ["alpha", "nlogn", "nsq"])
+@pytest.mark.parametrize("k,a,b,c,h,spare", [
+    (64, 9, 64, 2, 20, 500), (32, 41, 70, 23, 70, 2000), (5, 3, 4, 3, 4, 40),
+    (256, 9, 256, 2, 20, 3)],
+    ids=["syd", "kdd_like", "small", "capacity"])
+def test_split_post_kernels_equal_plain_on_random_planes(dev, k, a, b, c, h,
+                                                         spare, model):
+    """Random splitPre / splitAtt planes with many ties (small integral
+    counts: equal children's weights, equal class counts), invalid slots,
+    unknown bins, cases of slot -1 and of unsplit nodes, each cost model;
+    ``spare`` rows short of the capacity (3: the superstep overflows)."""
+    from repro_torch.core import frontier
+    from repro_torch.core.config import GrowConfig
+    from repro_torch.core.tree import Tree
+    rng = np.random.default_rng(k * a + c)
+    n, m = 30_000, 4096
+    cfg = GrowConfig(max_nodes=m, frontier_slots=k, cost_model=model,
+                     alpha=40.0)
+    cont_np = np.arange(a) % 3 != 2
+    nb_np = np.where(cont_np, b, rng.integers(1, h + 1, a)).astype(np.int32)
+    nb_np[np.flatnonzero(~cont_np)[0]] = h        # the widest: H children
+    prob = frontier.FrontierProblem(n_cases=n, n_attrs=a, n_bins_max=b,
+                                    n_classes=c, max_children=h, cfg=cfg)
+    n0 = m - spare
+    tree = Tree.empty(m + 1, c, dev)
+    tree.node_class[:] = torch.as_tensor(rng.integers(0, c, m + 1),
+                                         dtype=torch.int32, device=dev)
+    n_open = k - k // 4
+    ids = np.sort(rng.choice(n0, n_open, replace=False))
+    state = frontier.GrowState(
+        tree=tree,
+        status=torch.full((m + 1,), 2, dtype=torch.int32, device=dev),
+        active=torch.as_tensor(rng.random((m + 1, a)) < 0.8, device=dev),
+        case_node=torch.as_tensor(rng.integers(0, n0, n), dtype=torch.int32,
+                                  device=dev),
+        n_nodes=torch.tensor(n0, dtype=torch.int32, device=dev),
+        overflow=torch.tensor(False, device=dev))
+    ids_t = torch.full((k,), m, dtype=torch.int64, device=dev)
+    ids_t[:n_open] = torch.as_tensor(ids, device=dev)
+    valid = ids_t < m
+    slot = rng.integers(-1, k, n).astype(np.int32)
+    slot[slot >= n_open] = -1
+    pre = dict(
+        ids=ids_t, n_open=n_open, valid=valid,
+        ids_safe=torch.clamp_max(ids_t, m - 1),
+        slot=torch.as_tensor(slot, device=dev),
+        total_w=torch.as_tensor(rng.integers(0, 200, k), dtype=torch.float32,
+                                device=dev) * valid,
+        depth_k=torch.as_tensor(rng.integers(0, 9, k), dtype=torch.int32,
+                                device=dev),
+        pre_leaf=torch.as_tensor(rng.random(k) < 0.2, device=dev))
+    hist_u = torch.as_tensor(rng.integers(0, 3, (k, a, b + 1, c)) * (
+        rng.random((k, a, b + 1, c)) < 0.5), dtype=torch.float32, device=dev)
+    split_bin = np.where(cont_np[None, :], rng.integers(-1, b - 1, (k, a)),
+                         -1).astype(np.int32)
+    active_k = torch.as_tensor(rng.random((k, a)) < 0.7, device=dev) & valid[
+        :, None]
+    att = dict(hist=hist_u[:, :, :b], unknown=hist_u[:, :, b],
+               split_bin=torch.as_tensor(split_bin, device=dev),
+               active_k=active_k,
+               best_attr=torch.as_tensor(rng.integers(0, a, k),
+                                         dtype=torch.int32, device=dev),
+               has_split=torch.as_tensor(rng.random(k) < 0.8, device=dev))
+    x = np.stack([rng.integers(-1, nb_np[j], n) for j in range(a)], 1)
+    x = torch.as_tensor(x.astype(np.int32), device=dev)
+    cont = torch.as_tensor(cont_np, device=dev)
+    nb = torch.as_tensor(nb_np, device=dev)
+    plain, got = _split_post_both(state, pre, att, x, cont, nb, prob)
+    _assert_same_post(plain, got, m)
+    stats = plain[1]
+    assert bool(stats["overflow"]) == (spare == 3)
+    assert 0 < int(stats["n_active"]) < n
+    if spare > 3:
+        assert 0 < int(stats["n_internal"]) < n_open
+
+
+def test_split_post_launches_two_a_superstep(dev):
+    """A whole build(impl="cuda") on census_pums equals build(impl="torch")
+    on the card, with the same statistics row by row, two splitPost
+    launches a superstep and none on the torch build."""
+    from repro_torch.core import frontier
+    from repro_torch.core.config import GrowConfig
+    from repro_torch.core.tree import trees_equal
+    from repro_torch.data import datasets
+    from repro_torch.kernels import split_post
+    ds = datasets.load("census_pums", scale=0.01, max_bins=64)
+    cfg = GrowConfig(max_nodes=1 << 14, frontier_slots=64)
+    before = split_post.LAUNCHES
+    tree, rows = frontier.build(ds, cfg, collect_stats=True)
+    assert split_post.LAUNCHES - before == 2 * len(rows)
+    before = split_post.LAUNCHES
+    want, want_rows = frontier.build(ds, cfg, impl="torch", device=dev,
+                                     collect_stats=True)
+    assert split_post.LAUNCHES == before
+    assert trees_equal(tree, want)
+    assert rows == want_rows
+
+
 def test_traced_build_equals_untraced_on_the_card(dev):
     """frontier.build(impl="cuda") with an enabled tracer (spans that add
     no wait for the card) grows the untraced tree, with a span of each
-    phase, each wait and each kernel call a superstep, and a histogram and
-    split-gain launch each superstep; the registry holds the frontier's
+    phase, each wait and each kernel call a superstep (``wait.status``
+    once, the root's), and a histogram and split-gain launch and two
+    splitPost launches each superstep; the registry holds the frontier's
     counters and gauges and no ``frontier_phase_seconds``."""
     from repro_torch.core import frontier
     from repro_torch.core.config import GrowConfig
     from repro_torch.core.tree import trees_equal
     from repro_torch.data import datasets
-    from repro_torch.kernels import histogram, split_gain
+    from repro_torch.kernels import histogram, split_gain, split_post
     from repro_torch.obs import Registry, Tracer
     ds = datasets.load("census_pums", scale=0.01, max_bins=64)
     cfg = GrowConfig(max_nodes=1 << 14, frontier_slots=64)
     plain = frontier.build(ds, cfg, impl="cuda")
     tr, reg = Tracer(), Registry()
-    h0, g0 = histogram.LAUNCHES, split_gain.LAUNCHES
+    h0, g0, p0 = histogram.LAUNCHES, split_gain.LAUNCHES, split_post.LAUNCHES
     traced, rows = frontier.build(ds, cfg, impl="cuda", collect_stats=True,
                                   tracer=tr, metrics=reg)
     assert trees_equal(plain, traced)
     summ = tr.span_summary()
     for span in ("superstep", "splitPre", "splitAtt", "splitPost",
                  "wait.frontier", "wait.compact", "kernel.histogram",
-                 "kernel.split_gain"):
+                 "kernel.split_gain", "kernel.split_post"):
         assert summ[span]["count"] == len(rows), span
-    for span in ("wait.status", "wait.loop"):
-        assert summ[span]["count"] == len(rows) + 1, span
-    for span in ("entry.copy", "entry.init", "wait.stats"):
+    assert summ["wait.loop"]["count"] == len(rows) + 1
+    # the root's status write alone: the CUDA splitPost writes none
+    for span in ("entry.copy", "entry.init", "wait.stats", "wait.status"):
         assert summ[span]["count"] == 1, span
     assert split_gain.LAUNCHES - g0 == len(rows)
+    assert split_post.LAUNCHES - p0 == 2 * len(rows)
     assert histogram.LAUNCHES - h0 == sum(r["n_active"] > 0 for r in rows)
     assert "frontier_phase_seconds" not in reg.snapshot()
     assert set(reg.snapshot()) == {
@@ -274,10 +498,13 @@ def test_tracer_adds_one_synchronising_call_a_build(dev, monkeypatch):
     any explicit ``torch.cuda.synchronize``: with an enabled Tracer and no
     stats a build makes exactly one more than the untraced build of the
     same tree, the one read of the statistics after the loop, and the
-    same calls at every other line.  The untraced build makes 4N + 2 at
+    same calls at every other line.  Past the entry's copies of the rows
+    (``build``'s own lines) the untraced build makes exactly 3N + 2, at
     the traced ``wait.*`` spans' lines: the loop's N + 1 tests, two
-    ``nonzero`` and a status write a superstep, the root's status write."""
+    ``nonzero`` a superstep, the root's status write.  splitPost makes
+    none: no call in its lines nor in its kernels' wrapper."""
     import collections
+    import inspect
     import warnings
     from pathlib import Path
 
@@ -327,9 +554,18 @@ def test_tracer_adds_one_synchronising_call_a_build(dev, monkeypatch):
     assert not untraced - with_tracer, (untraced, with_tracer)
     assert sum(extra.values()) == 1, extra
     assert next(iter(extra))[0] == "frontier.py", extra
-    waits = sum(n for (f, _), n in untraced.items()
-                if f in ("frontier.py", "compaction.py"))
-    assert waits >= 4 * n_steps + 2, (untraced, n_steps)
+
+    def lines(fn):
+        src, start = inspect.getsourcelines(fn)
+        return range(start, start + len(src))
+    entry = lines(frontier.build)
+    post = [*lines(frontier.split_post), *lines(frontier._split_post_cuda)]
+    assert not [site for site in untraced if site[0] == "split_post.py"
+                or site[0] == "frontier.py" and site[1] in post], untraced
+    waits = sum(n for (f, line), n in untraced.items()
+                if f == "compaction.py"
+                or f == "frontier.py" and line not in entry)
+    assert waits == 3 * n_steps + 2, (untraced, n_steps)
 
 
 def test_concurrent_builds_from_threads(dev):
@@ -337,13 +573,14 @@ def test_concurrent_builds_from_threads(dev):
     workers launch them: three classes and B = 320 .. 1,024 bins put split
     gain on its shared-memory kernel with an opt-in of 34-101 KB that
     differs between the threads.  Each tree equals its build alone, and
-    the launch counts are the lone builds' sum exactly."""
+    the launch counts (histogram, split gain, splitPost) are the lone
+    builds' sum exactly."""
     import threading
 
     from repro_torch.core import binning, frontier
     from repro_torch.core.config import GrowConfig
     from repro_torch.core.tree import trees_equal
-    from repro_torch.kernels import autotune, histogram, split_gain
+    from repro_torch.kernels import autotune, histogram, split_gain, split_post
     cfg = GrowConfig(max_nodes=1 << 12, frontier_slots=32)
     sets = []
     for i, b in enumerate((320, 512, 768, 1024)):
@@ -356,11 +593,13 @@ def test_concurrent_builds_from_threads(dev):
             x, y, attr_is_cont=[True, True, False], n_bins=[b, b, 6],
             n_classes=3))
         assert not autotune.plan_split_gain(n_bins=b, n_classes=3).regs
+    def launches():
+        return histogram.LAUNCHES, split_gain.LAUNCHES, split_post.LAUNCHES
     alone, counts = [], []
     for ds in sets:
-        h0, g0 = histogram.LAUNCHES, split_gain.LAUNCHES
+        before = launches()
         alone.append(frontier.build(ds, cfg, impl="cuda"))
-        counts.append((histogram.LAUNCHES - h0, split_gain.LAUNCHES - g0))
+        counts.append(tuple(n - b for n, b in zip(launches(), before)))
     got, errors = [None] * len(sets), []
     start = threading.Barrier(len(sets))
 
@@ -370,7 +609,7 @@ def test_concurrent_builds_from_threads(dev):
             got[i] = frontier.build(sets[i], cfg, impl="cuda")
         except BaseException as e:       # surfaced below
             errors.append(e)
-    h0, g0 = histogram.LAUNCHES, split_gain.LAUNCHES
+    before = launches()
     threads = [threading.Thread(target=grow, args=(i,))
                for i in range(len(sets))]
     for t in threads:
@@ -381,7 +620,7 @@ def test_concurrent_builds_from_threads(dev):
     assert not errors, errors
     for a, b in zip(alone, got):
         assert trees_equal(a, b)
-    assert (histogram.LAUNCHES - h0, split_gain.LAUNCHES - g0) == tuple(
+    assert tuple(n - b for n, b in zip(launches(), before)) == tuple(
         map(sum, zip(*counts)))
 
 
@@ -1020,22 +1259,23 @@ def test_frontier_supersteps_on_a_one_rank_mesh_equal_unpartitioned(
         one_rank_mesh, compact):
     """Four supersteps with the cases as DTensors (the compaction on each
     rank's shard, the histogram and split-gain ops under their
-    strategies) equal the unpartitioned ones bit for bit, with as many
-    kernel launches."""
+    strategies, the splitPost kernels on each rank's local tensors) equal
+    the unpartitioned ones bit for bit, with as many kernel launches."""
     import _torch_mesh
-    from repro_torch.kernels import histogram, split_gain
+    from repro_torch.kernels import histogram, split_gain, split_post
     npz = _torch_mesh.tree_npz(compact)
 
     def run(mesh):
-        before = histogram.LAUNCHES, split_gain.LAUNCHES
+        before = histogram.LAUNCHES, split_gain.LAUNCHES, split_post.LAUNCHES
         out = _torch_mesh.superstep_out(
             *_torch_mesh.tree_cell(npz, "cuda"), mesh, 4, impl="cuda")
         torch.cuda.synchronize()
         return out, (histogram.LAUNCHES - before[0],
-                     split_gain.LAUNCHES - before[1])
+                     split_gain.LAUNCHES - before[1],
+                     split_post.LAUNCHES - before[2])
     want, n_want = run(None)
     got, n_got = run(one_rank_mesh)
-    assert n_got == n_want and n_want[0] > 0
+    assert n_got == n_want and n_want[0] > 0 and n_want[2] == 2 * 4
     assert int(got["n_nodes"]) > 1
     for k, v in want.items():
         np.testing.assert_array_equal(got[k], v, err_msg=k)
