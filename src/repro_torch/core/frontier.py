@@ -41,7 +41,8 @@ loop's first test), then a ``superstep`` span a superstep holding its
 test.  Each place the host waits for the card is a ``wait.*`` span around
 the read itself: ``wait.loop`` (the loop's test), ``wait.frontier``
 (splitPre's ``nonzero``), ``wait.compact`` (the compaction's
-``nonzero``), ``wait.status`` (the root's status, written from a host
+``nonzero``, inside splitAtt's ``compact`` span, which holds the whole
+gather of the live cases), ``wait.status`` (the root's status, written from a host
 scalar in the initial state, which torch copies to the device and waits
 for; the plain splitPost writes the new children's so too, the CUDA
 splitPost in its node kernel, ``kernels.split_post``) and ``wait.stats``
@@ -211,7 +212,9 @@ def _histogram(x, y, w, slot, *, n_open: int, prob: FrontierProblem,
     if is_dtensor(x) and not active_cases_sharded():
         x, y, w, slot = (replicate(t) for t in (x, y, w, slot))
     if cfg.compact:
-        x, y, w, slot = compaction.live_cases(x, y, w, slot, tracer=tracer)
+        with tracer.span("compact"):
+            x, y, w, slot = compaction.live_cases(x, y, w, slot,
+                                                  tracer=tracer)
     with tracer.span("kernel.histogram"):
         if impl == "torch" and not is_dtensor(x):
             return ref.frontier_histogram_ref(x, y, w, slot, **kw)

@@ -9,7 +9,9 @@ scheduling benchmarks (what the paper's figures measure is farm dynamics
 over the task DAG, which depends on the tree shape, not on UCI semantics).
 
 ``load(name, scale=...)`` subsamples the case count for CPU-budget runs;
-benchmarks record the scale they used.
+benchmarks record the scale they used.  ``load`` also makes the
+deployments of ``GENERATED``, which are stated generators rather than
+stand-ins for a Table 1 file.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import dataclasses
 import numpy as np
 
 from repro_torch.core.binning import BinnedDataset, fit
-from repro_torch.data import quest
+from repro_torch.data import quest, waveform
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +45,10 @@ TABLE1: dict[str, TableOneSpec] = {
                                  41_775, 62),
     "syd10m9a": TableOneSpec("SyD10M9A", 10_000_000, 2, 3, 6, 169_108, 22),
 }
+
+# Deployments beside Table 1's, each a stated generator at Table 1's
+# largest scale: name -> full case count.  Waveform-40: data/waveform.py.
+GENERATED: dict[str, int] = {"waveform40": 10_000_000}
 
 
 def _random_tree_labels(x_cols: list[np.ndarray], is_cont: list[bool],
@@ -80,7 +86,11 @@ def _random_tree_labels(x_cols: list[np.ndarray], is_cont: list[bool],
 
 def load(name: str, *, scale: float = 1.0, seed: int = 0,
          max_bins: int = 128) -> BinnedDataset:
-    """Materialise a Table-1 stand-in at ``scale`` of its original size."""
+    """Materialise a Table-1 stand-in, or a deployment of ``GENERATED``, at
+    ``scale`` of its full size."""
+    if name in GENERATED:
+        n = max(256, int(GENERATED[name] * scale))
+        return waveform.generate(n, seed=seed, max_bins=max_bins)
     spec = TABLE1[name]
     n = max(256, int(spec.n_cases * scale))
     if name == "syd10m9a":

@@ -475,8 +475,9 @@ def test_traced_build_equals_untraced_on_the_card(dev):
     assert trees_equal(plain, traced)
     summ = tr.span_summary()
     for span in ("superstep", "splitPre", "splitAtt", "splitPost",
-                 "wait.frontier", "wait.compact", "kernel.histogram",
-                 "kernel.split_gain", "kernel.split_post"):
+                 "wait.frontier", "compact", "wait.compact",
+                 "kernel.histogram", "kernel.split_gain",
+                 "kernel.split_post"):
         assert summ[span]["count"] == len(rows), span
     assert summ["wait.loop"]["count"] == len(rows) + 1
     # the root's status write alone: the CUDA splitPost writes none

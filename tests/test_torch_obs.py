@@ -12,7 +12,7 @@ build's span names among its own (one ``superstep`` / ``splitPre`` /
 counters and gauges (and no ``frontier_phase_seconds``), and the JAX
 ``frontier.n_active`` counter values.  Its span tree: ``entry.copy`` and
 ``entry.init`` once, in each superstep one ``wait.frontier``,
-``wait.compact``, ``kernel.histogram``, ``kernel.split_gain``,
+``compact`` (holding ``wait.compact``), ``kernel.histogram``, ``kernel.split_gain``,
 ``wait.status`` and ``wait.loop``, the root's status write and the loop's
 first test in ``entry.init``, one ``wait.stats`` after the loop, every span inside its parent on one thread; the
 statistics read once, not a superstep at a time.  The report and tracing
@@ -275,13 +275,15 @@ def test_tracing_disabled_leaves_no_residue():
 # each span's parent: the spans of ``PARENTS`` at the build's top level
 PARENTS = {"splitPre": ("superstep",), "splitAtt": ("superstep",),
            "splitPost": ("superstep",), "wait.frontier": ("splitPre",),
-           "wait.compact": ("splitAtt",), "kernel.histogram": ("splitAtt",),
+           "compact": ("splitAtt",), "wait.compact": ("compact",),
+           "kernel.histogram": ("splitAtt",),
            "kernel.split_gain": ("splitAtt",),
            "wait.status": ("splitPost", "entry.init"),
            "wait.loop": ("superstep", "entry.init")}
 TOP = ("entry.copy", "entry.init", "superstep", "wait.stats")
 IN_SUPERSTEP = ("splitPre", "splitAtt", "splitPost", "wait.frontier",
-                "wait.compact", "kernel.histogram", "kernel.split_gain",
+                "compact", "wait.compact", "kernel.histogram",
+                "kernel.split_gain",
                 "wait.status", "wait.loop")
 
 
