@@ -17,12 +17,15 @@ Phases (each one that fails ends the run with a non-zero exit):
      slots compacted, census_pums' shape in one slot and over 256, K = 1,
      N = 1), each timed beside its bound with the plan it took; split gain
      timed by the profiler (its kernel alone).  splitPost's two kernels
-     against the plain split_post on clones of one state at the build's
-     root superstep (N 10M, K 256) and at superstep SPLIT_POST_DEEP_STEP:
-     every node array, status, active row, case node, n_nodes, overflow
-     and statistic exact, two launches each; timed (CUDA events behind a
-     spin, the profiler beside them) against the plain version's kernels
-     and their bound.
+     against the plain split_post on clones of one state of the cuda
+     build (its open range on the card) at the build's root superstep
+     (N 10M, K 256) and at superstep SPLIT_POST_DEEP_STEP: every node
+     array, status, active row, case node, n_nodes, overflow and
+     statistic exact, two launches each, and the next frontier they write
+     (the K-wide planes, n_open, each case's slot) exactly the plain
+     split_pre's on the plain split_post's state; timed (CUDA events
+     behind a spin, the profiler beside them, each call on a clone of its
+     own) against the plain version's kernels and their bound.
   3. SyD10M9A at full size (10,000,000 cases, 9 attributes, 256 bins) grown
      with the defaults (the CUDA kernels) and collect_stats=True; both
      splitAtt kernels must have been launched by that build, and splitPost's
@@ -818,13 +821,23 @@ def check_split_gain(sub_hist, cont, nb, n_bins, gen, dev):
 
 
 def _clone_state(state):
+    """A copy of ``state`` that a splitPost may update in place, its open
+    range (splitPre's planes and slots, which the CUDA splitPost
+    rewrites) included."""
+    import torch
     from repro_torch.core import frontier
     tree = dataclasses.replace(state.tree, **{
         f.name: getattr(state.tree, f.name).clone()
         for f in dataclasses.fields(state.tree)})
+    rng = state.open_range
+    if rng is not None:
+        rng = frontier.OpenRange(bounds=rng.bounds.clone(), pre={
+            k: v.clone() if isinstance(v, torch.Tensor) else v
+            for k, v in rng.pre.items()})
     return frontier.GrowState(
         tree=tree, **{f: getattr(state, f).clone() for f in (
-            "status", "active", "case_node", "n_nodes", "overflow")})
+            "status", "active", "case_node", "n_nodes", "overflow")},
+        open_range=rng)
 
 
 def _same_post(want, got, m: int, where: str) -> None:
@@ -851,32 +864,68 @@ def _same_post(want, got, m: int, where: str) -> None:
           f"{want_s} at {where}")
 
 
+def _same_next(want_state, got_state, prob, where: str) -> None:
+    """The next frontier the CUDA splitPost wrote on ``got_state``'s open
+    range, read as the build's loop reads it, against the plain
+    ``split_pre`` of the plain splitPost's ``want_state``: n_open, the
+    K-wide planes and every case's slot (-2, a closed node's case, read
+    as the plain -1) exactly equal."""
+    import torch
+    from repro_torch.core import frontier
+    from repro_torch.obs.trace import NULL
+    frontier._open_left(got_state, prob.cfg, NULL)
+    got = got_state.open_range.pre
+    want = frontier.split_pre(want_state, prob=prob)
+    check(got["n_open"] == want["n_open"], f"split_post next n_open "
+          f"{got['n_open']} != plain {want['n_open']} at {where}")
+    for key in ("ids", "valid", "ids_safe", "total_w", "depth_k",
+                "pre_leaf"):
+        check(got[key].dtype == want[key].dtype
+              and torch.equal(got[key], want[key]),
+              f"split_post next {key} != plain split_pre at {where}")
+    slot = got["slot"]
+    check(torch.equal(torch.where(slot < 0, -1, slot), want["slot"]),
+          f"split_post next slot != plain split_pre at {where}")
+
+
 def check_split_post(syd, x, y, w, cont, nb, cfg, dev) -> dict:
     """splitPost's two kernels against the plain ``split_post`` on clones
-    of one state, at SyD10M9A's root superstep (every case live, K slots)
-    and at superstep SPLIT_POST_DEEP_STEP of the same build; each timed:
-    the kernels' device time (CUDA events behind a spin; the profiler's
-    beside it), a call's host wall time, the plain version's kernels
-    (profiler) and wall time, and the bound."""
+    of one state of the cuda build (its open range on the card, read by
+    the loop's test as the build reads it), at SyD10M9A's root superstep
+    (every case live, K slots) and at superstep SPLIT_POST_DEEP_STEP of
+    the same build: the state and statistics, and the next frontier the
+    kernels write against the plain ``split_pre``.  Each timed as the
+    build calls it, on a clone of its own (the kernels rewrite its
+    splitPre in place): the kernels' device time (CUDA events behind a
+    spin; the profiler's beside it), a call's host wall time, the plain
+    version's kernels (profiler) and wall time, and the bound."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import frontier
     from repro_torch.kernels import split_post
     from repro_torch.launch import roofline as rl
+    from repro_torch.obs.trace import NULL
 
     prob = frontier.FrontierProblem.from_dataset(syd, cfg)
     m = cfg.max_nodes
-    state = frontier.init_state(prob, y, w)
+    state = frontier.init_state(prob, y, w, open_range=True)
     timed = []
     for step in range(SPLIT_POST_DEEP_STEP + 1):
+        check(frontier._open_left(state, cfg, NULL),
+              f"split_post: the build ended before superstep {step}")
         pre = frontier.split_pre(state, prob=prob)
         att = frontier.split_att(state, pre, x, y, w, cont, nb, prob=prob,
                                  impl="cuda")
 
         def post(s, impl):
-            return frontier.split_post(s, pre, att, x, cont, nb, prob=prob,
-                                       impl=impl)
+            # a clone's own splitPre, which the CUDA kernels rewrite
+            return frontier.split_post(s, s.open_range.pre, att, x, cont, nb,
+                                       prob=prob, impl=impl)
+
+        def clones(n):
+            it = iter([_clone_state(state) for _ in range(n)])
+            return lambda: post(next(it), "cuda")
         if step in (0, SPLIT_POST_DEEP_STEP):
             where = f"superstep {step}"
             before = split_post.LAUNCHES
@@ -886,13 +935,13 @@ def check_split_post(syd, x, y, w, cont, nb, cfg, dev) -> dict:
                   f"split_post: {split_post.LAUNCHES - before} launches at "
                   f"{where}, expected 2")
             _same_post(want, got, m, where)
-            # the kernels read pre, att and the state's n_nodes and write
-            # the same values on every call: repeat them on one clone
-            s = _clone_state(state)
-            ms = queued_ms(lambda: post(s, "cuda"), 20)
-            prof_ms = kernel_ms(lambda: post(s, "cuda"), "split_post_",
-                                reps=20)
-            _, call_s = _timed(lambda: post(s, "cuda"))
+            _same_next(want[0], got[0], prob, where)
+            new_slot = got[0].open_range.pre["slot"]
+            changed = int((new_slot != pre["slot"]).sum())
+            del want, got, new_slot
+            ms = queued_ms(clones(21), 20)
+            prof_ms = kernel_ms(clones(21), "split_post_", reps=20)
+            _, call_s = _timed(clones(1))
             plains = [_clone_state(state) for _ in range(3)]
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for p in plains:
@@ -903,22 +952,23 @@ def check_split_post(syd, x, y, w, cont, nb, cfg, dev) -> dict:
             plain_ms = sum(e.self_device_time_total for e in evs) / 1e3 / 3
             _, plain_s = _timed(lambda: post(_clone_state(state), "torch"))
             live = int((pre["slot"] >= 0).sum())
-            b_ms, b_by = bound(rl.split_post_bytes(prob.n_cases, live), 0)
+            waiting = int((pre["slot"] == -1).sum())
+            b_ms, b_by = bound(rl.split_post_bytes(prob.n_cases, live,
+                                                   waiting, changed), 0)
             timed.append(dict(
-                superstep=step, open=pre["n_open"], live_cases=live, ms=ms,
+                superstep=step, open=pre["n_open"], live_cases=live,
+                waiting_cases=waiting, changed_slots=changed, ms=ms,
                 profiler_ms=prof_ms, call_ms=call_s * 1e3, plain_ms=plain_ms,
                 plain_kernels=len(evs), plain_call_ms=plain_s * 1e3,
                 bound_ms=b_ms, bound_by=b_by))
             print(f"split_post at {where}: {pre['n_open']} open, {live} live "
-                  f"cases: {ms:.4f} ms (profiler {prof_ms:.4f}; a call "
+                  f"cases, {waiting} waiting, {changed} slots changed: "
+                  f"{ms:.4f} ms (profiler {prof_ms:.4f}; a call "
                   f"{call_s * 1e3:.3f} ms wall), plain {plain_ms:.4f} ms in "
                   f"{len(evs)} kernels ({plain_s * 1e3:.3f} ms wall), bound "
                   f"{b_ms:.5f} by {b_by}")
-            del s, plains, want, got
+            del plains
         state, _ = post(state, "cuda")
-    check(bool(torch.any(state.status[:m] == frontier.GrowState.STATUS_OPEN)),
-          f"split_post: the build ended before superstep "
-          f"{SPLIT_POST_DEEP_STEP}")
     root = timed[0]
     return dict(
         name="split_post", route="cuda",

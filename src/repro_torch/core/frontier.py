@@ -10,16 +10,24 @@ at a time per superstep:
 
 Open nodes are taken in ascending id order and children are allocated
 contiguously in slot order, so node ids are the sequential oracle's
-breadth-first ids and trees compare elementwise with it.
+breadth-first ids and trees compare elementwise with it.  Since only
+children are opened, the open nodes are always one range of ids,
+``[lo, n_nodes)``, drained from the front.
 
 ``impl="cuda"`` runs splitAtt on the hand-written CUDA kernels (histogram,
 then the fused split gain) and splitPost on two more (the node results and
 children, then the cases' routing: ``kernels.split_post``); ``impl="torch"``
-runs their plain versions.
-With ``GrowConfig.compact`` set, both gather the live cases first.  Per-node
-state arrays carry one extra dump row (index M) that absorbs the writes of
-unused slots, in place of the JAX scatters' ``mode="drop"``; readers only
-look at rows below M.
+runs their plain versions.  With ``GrowConfig.compact`` set, both gather
+the live cases first.  Per-node state arrays carry one extra dump row
+(index M) that absorbs the writes of unused slots, in place of the JAX
+scatters' ``mode="drop"``; readers only look at rows below M.
+
+The ``cuda`` build keeps the open range on the card (:class:`OpenRange`):
+splitPost's kernels also write the next superstep's splitPre, so its
+splitPre launches nothing and reads nothing, and the loop's test is one
+read of the range's two words.  A state without the range (the ``torch``
+build, a partitioned superstep, a state made by hand) takes the plain
+splitPre, which selects the frontier from ``status``.
 
 A superstep also runs partitioned, on DTensors (``launch.specs``' yadt
 cell: the cases sharded over the mesh, the node arrays replicated).
@@ -39,14 +47,16 @@ spans on the host's clock that add no wait for the card: ``entry.copy``
 loop's first test), then a ``superstep`` span a superstep holding its
 ``splitPre`` / ``splitAtt`` / ``splitPost`` phases and the loop's next
 test.  Each place the host waits for the card is a ``wait.*`` span around
-the read itself: ``wait.loop`` (the loop's test), ``wait.frontier``
-(splitPre's ``nonzero``), ``wait.compact`` (the compaction's
+the read itself: ``wait.loop`` (the loop's test), ``wait.frontier`` (the
+plain splitPre's ``nonzero``), ``wait.compact`` (the compaction's
 ``nonzero``, inside splitAtt's ``compact`` span, which holds the whole
 gather of the live cases), ``wait.status`` (the root's status, written from a host
 scalar in the initial state, which torch copies to the device and waits
 for; the plain splitPost writes the new children's so too, the CUDA
 splitPost in its node kernel, ``kernels.split_post``) and ``wait.stats``
-(the one read of every superstep's statistics, after the loop).
+(the one read of every superstep's statistics, after the loop).  The
+``cuda`` build so waits twice a superstep (``wait.loop``,
+``wait.compact``), the ``torch`` build four times.
 ``kernel.histogram`` and ``kernel.split_gain`` time the host's calls of
 splitAtt's two kernels, ``kernel.split_post`` those of splitPost's two.
 """
@@ -76,6 +86,20 @@ IMPLS = ("cuda", "torch")
 
 
 @dataclasses.dataclass
+class OpenRange:
+    """The open nodes as the id range ``[lo, n_nodes)`` on the card, and
+    the coming superstep's splitPre, which splitPost's kernels write: the
+    frontier is ``lo + arange(n_open)``, ``n_open = min(K, n_nodes - lo)``,
+    and a case's slot is its node less ``lo`` inside it."""
+    bounds: torch.Tensor       # int32 (2,): lo, n_nodes (the state's a view)
+    # splitPre's outputs, which splitPost's kernels rewrite in place: the
+    # K-wide planes, slot (int32 (N,): -1 an open node outside the
+    # frontier, -2 a leaf) and n_open (host int, None until the range is
+    # read)
+    pre: dict[str, Any]
+
+
+@dataclasses.dataclass
 class GrowState:
     tree: Tree                 # arrays of M+1 rows (row M = dump row)
     status: torch.Tensor       # int32 (M+1,): 0 empty 1 open 2 internal 3 leaf
@@ -83,6 +107,7 @@ class GrowState:
     case_node: torch.Tensor    # int32 (N,): current node of each case
     n_nodes: torch.Tensor      # int32 0-d
     overflow: torch.Tensor     # bool 0-d: capacity forced early leaves
+    open_range: OpenRange | None = None     # impl="cuda" builds only
 
     STATUS_EMPTY = 0
     STATUS_OPEN = 1
@@ -111,8 +136,11 @@ class FrontierProblem:
 
 
 def init_state(prob: FrontierProblem, y: torch.Tensor, w: torch.Tensor,
-               attr_mask: torch.Tensor | None = None, tracer=NULL
-               ) -> GrowState:
+               attr_mask: torch.Tensor | None = None, tracer=NULL, *,
+               open_range: bool = False) -> GrowState:
+    """The root alone, open.  ``open_range`` keeps the open nodes as an
+    :class:`OpenRange` with the root's frontier (``impl="cuda"`` builds,
+    whose splitPost's kernels carry it on)."""
     cfg = prob.cfg
     dev = y.device
     m = cfg.max_nodes
@@ -129,11 +157,22 @@ def init_state(prob: FrontierProblem, y: torch.Tensor, w: torch.Tensor,
     # device, so the host waits here for the root's counts
     with tracer.span("wait.status"):
         status[0] = GrowState.STATUS_OPEN
-    return GrowState(
+    state = GrowState(
         tree=tree, status=status, active=active,
         case_node=torch.zeros((prob.n_cases,), dtype=torch.int32, device=dev),
         n_nodes=torch.ones((), dtype=torch.int32, device=dev),
         overflow=torch.zeros((), dtype=torch.bool, device=dev))
+    if open_range:
+        # (lo, n_nodes) = (0, 1), made on the card: no host value to copy
+        bounds = torch.arange(2, dtype=torch.int32, device=dev)
+        j = torch.arange(cfg.frontier_slots, device=dev)
+        pre = _stop_tests(tree, torch.where(j == 0, 0, m), cfg)
+        state.n_nodes = bounds[1]
+        state.open_range = OpenRange(
+            bounds=bounds,
+            pre=dict(pre, slot=torch.zeros_like(state.case_node),
+                     n_open=None))
+    return state
 
 
 # --------------------------------------------------------------------------
@@ -240,11 +279,36 @@ def _gains(hist, total_w, attr_is_cont, n_bins, *, prob: FrontierProblem,
 # One superstep = splitPre + splitAtt + splitPost over K open nodes.
 # --------------------------------------------------------------------------
 
+def _stop_tests(tree: Tree, ids: torch.Tensor, cfg: GrowConfig
+                ) -> dict[str, torch.Tensor]:
+    """The K-wide planes of the frontier ``ids`` (padded with M): the
+    stop tests on stored node frequencies."""
+    m = cfg.max_nodes
+    valid = ids < m
+    ids_safe = torch.clamp_max(ids, m - 1)
+    freq = torch.where(valid[:, None], tree.node_freq[ids_safe], 0.0)
+    total_w = torch.sum(freq, dim=-1)
+    depth_k = tree.node_depth[ids_safe]
+    pure = torch.sum((freq > EPS_W).to(torch.int32), -1) <= 1
+    small = total_w < 2.0 * cfg.min_objs
+    deep = depth_k >= cfg.max_depth
+    return dict(ids=ids, valid=valid, ids_safe=ids_safe, total_w=total_w,
+                depth_k=depth_k, pre_leaf=pure | small | deep)
+
+
 def split_pre(state: GrowState, *, prob: FrontierProblem, tracer=NULL
               ) -> dict[str, torch.Tensor]:
     """Frontier selection + stop tests on stored node frequencies.  Of a
-    partitioned state, on each rank's local tensors (the module's
-    docstring); ``slot`` then takes the cases' layout."""
+    state with the open range, the planes splitPost's kernels wrote, with
+    no launch and no wait: the loop's test must have read the range
+    (``_open_left``).  Of a partitioned state, on each rank's local
+    tensors (the module's docstring); ``slot`` then takes the cases'
+    layout."""
+    if state.open_range is not None:
+        if state.open_range.pre["n_open"] is None:
+            raise RuntimeError("split_pre of an open range the loop's test "
+                               "has not read")
+        return state.open_range.pre
     if is_dtensor(state.case_node):
         cases = state.case_node
         pre = split_pre(_local_state(state), prob=prob, tracer=tracer)
@@ -252,7 +316,6 @@ def split_pre(state: GrowState, *, prob: FrontierProblem, tracer=NULL
                 else _as_replicated(v, cases) for k, v in pre.items()}
     cfg = prob.cfg
     m, k = cfg.max_nodes, cfg.frontier_slots
-    tree = state.tree
     dev = state.status.device
 
     # ---- the first K open node ids, ascending (= breadth-first), padded
@@ -262,23 +325,11 @@ def split_pre(state: GrowState, *, prob: FrontierProblem, tracer=NULL
                             ).flatten()[:k]
         n_open = ids.numel()         # host-side: nonzero has synchronised
     ids = torch.nn.functional.pad(ids, (0, k - n_open), value=m)
-    valid = ids < m
-    ids_safe = torch.clamp_max(ids, m - 1)
 
     node_to_slot = torch.full((m + 1,), -1, dtype=torch.int32, device=dev)
     node_to_slot[ids] = torch.arange(k, dtype=torch.int32, device=dev)
     slot = node_to_slot[state.case_node.long()]                   # (N,)
-
-    # ---- stop tests on stored frequencies
-    freq = torch.where(valid[:, None], tree.node_freq[ids_safe], 0.0)
-    total_w = torch.sum(freq, dim=-1)
-    depth_k = tree.node_depth[ids_safe]
-    pure = torch.sum((freq > EPS_W).to(torch.int32), -1) <= 1
-    small = total_w < 2.0 * cfg.min_objs
-    deep = depth_k >= cfg.max_depth
-    return dict(ids=ids, n_open=n_open, valid=valid, ids_safe=ids_safe,
-                slot=slot, total_w=total_w, depth_k=depth_k,
-                pre_leaf=pure | small | deep)
+    return dict(_stop_tests(state.tree, ids, cfg), n_open=n_open, slot=slot)
 
 
 def split_att(state: GrowState, pre: dict, x: torch.Tensor, y: torch.Tensor,
@@ -457,19 +508,27 @@ def _split_post_cuda(state: GrowState, pre: dict, att: dict,
     """splitPost on two kernels (``kernels.split_post``): the node arrays,
     ``status``, ``active`` and ``case_node`` updated in place; ``n_nodes``,
     ``overflow`` and the statistics views of the node kernel's output.
-    Nothing waits for the card."""
+    Of a state with the open range, the kernels also write the next
+    splitPre over ``pre``, in place: the routing kernel runs after the node
+    kernel, the planes' only reader.  Nothing waits for the card."""
     cfg = prob.cfg
+    rng = state.open_range
+    ahead = {} if rng is None else dict(
+        ahead=pre, lo=rng.bounds[0], min_objs=cfg.min_objs,
+        max_depth=cfg.max_depth)
     with tracer.span("kernel.split_post"):
-        n_nodes, overflow, stats = post_kernels.split_post(
+        bounds, overflow, stats = post_kernels.split_post(
             state.tree, state.status, state.active, state.case_node,
             state.n_nodes, state.overflow, pre, att, x, attr_is_cont,
             n_bins, cost_model=cfg.cost_model,
-            n_total_cases=float(prob.n_cases), alpha=cfg.alpha)
+            n_total_cases=float(prob.n_cases), alpha=cfg.alpha, **ahead)
     tree = state.tree
-    tree.n_nodes = n_nodes
+    tree.n_nodes = bounds[1]
+    nxt = None if rng is None else OpenRange(
+        bounds=bounds, pre=dict(pre, n_open=None))
     return GrowState(tree=tree, status=state.status, active=state.active,
-                     case_node=state.case_node, n_nodes=n_nodes,
-                     overflow=overflow), stats
+                     case_node=state.case_node, n_nodes=bounds[1],
+                     overflow=overflow, open_range=nxt), stats
 
 
 def superstep(state: GrowState, x: torch.Tensor, y: torch.Tensor,
@@ -495,11 +554,19 @@ def superstep(state: GrowState, x: torch.Tensor, y: torch.Tensor,
 # Full build
 # --------------------------------------------------------------------------
 
-def _open_left(state: GrowState, m: int, tracer) -> bool:
+def _open_left(state: GrowState, cfg: GrowConfig, tracer) -> bool:
     """The loop's test, any node still open: the JAX build's
-    ``lax.while_loop`` condition, a wait for the device here."""
+    ``lax.while_loop`` condition, a wait for the device here.  Of a state
+    with the open range, the one read of its two words, which also gives
+    the coming superstep's ``n_open``."""
+    rng = state.open_range
     with tracer.span("wait.loop"):
-        return bool(torch.any(state.status[:m] == GrowState.STATUS_OPEN))
+        if rng is not None:
+            lo, n_nodes = rng.bounds.tolist()
+            rng.pre["n_open"] = min(cfg.frontier_slots, n_nodes - lo)
+            return n_nodes > lo
+        return bool(torch.any(state.status[:cfg.max_nodes]
+                              == GrowState.STATUS_OPEN))
 
 
 def _read_stats(pending: list[dict[str, torch.Tensor]]
@@ -583,8 +650,9 @@ def build(ds: BinnedDataset, cfg: GrowConfig = GrowConfig(), *,
     rows: list[dict[str, Any]] = []
     pending, starts = [], []        # traced: the statistics left on device
     with tracer.span("entry.init"):
-        state = init_state(prob, y, w, mask, tracer)
-        left = _open_left(state, m, tracer)
+        state = init_state(prob, y, w, mask, tracer,
+                           open_range=impl == "cuda")
+        left = _open_left(state, cfg, tracer)
     step = 0
     while left:
         with tracer.span("superstep", step=step) as span:
@@ -595,7 +663,7 @@ def build(ds: BinnedDataset, cfg: GrowConfig = GrowConfig(), *,
                 starts.append(span.ts)
             elif collect_stats:
                 rows.append({key: v.item() for key, v in stats.items()})
-            left = _open_left(state, m, tracer)
+            left = _open_left(state, cfg, tracer)
         step += 1
     if traced:
         with tracer.span("wait.stats"):

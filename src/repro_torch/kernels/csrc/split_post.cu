@@ -15,8 +15,10 @@
 // few hundred loads of its slot's histogram row from L2); the routing
 // kernel is device-memory bytes: it reads every case's slot (4N bytes) and,
 // for a case of a node split this superstep, one bin of its row (a 32-byte
-// sector) and writes its node.  The torch version moved ~2.5 GB a
-// superstep at full width in int64 temporaries.
+// sector) and writes its node; writing the next frontier, it also reads
+// the node of a case waiting outside the frontier and writes a slot that
+// changes (4 bytes each).  The torch version moved ~2.5 GB a superstep at
+// full width in int64 temporaries.
 //
 // Node kernel (grid K, 256 threads; block r takes slot r):
 //   * every block scans the K slots' child counts itself (nch: 2 for a
@@ -25,7 +27,7 @@
 //     (n_nodes + the exclusive prefix) and whether the superstep overflows
 //     the capacity (then every slot becomes a leaf) without a second pass;
 //   * block 0 also reduces the superstep's statistics and writes them, with
-//     the new n_nodes and overflow, into stats (8 words), and zeroes the
+//     the new overflow, lo and n_nodes, into stats (9 words), and zeroes the
 //     active-case count the routing kernel adds to;
 //   * block r writes its node's row (ids[r]; an invalid slot's id is the
 //     dump row M), and for a split node its children: the class
@@ -41,8 +43,25 @@
 // counts as active (one atomic a block); if its node split, it reads its
 // bin of the split attribute and moves to its child (the heaviest for an
 // unknown value, b <= split bin -> 0 else 1 for a continuous attribute, b
-// for a discrete one).  case_node is updated in place; a case of a closed
-// node reads nothing but its slot.
+// for a discrete one).  case_node is updated in place; without the next
+// frontier a case of slot < 0 reads nothing but its slot.
+//
+// The next frontier (a state whose open nodes are the id range
+// [lo, n_nodes), core/frontier.py OpenRange).  splitPre takes the K lowest
+// open ids and the node kernel numbers the children from n_nodes up, so
+// the open nodes stay one range drained from the front: the node kernel
+// writes lo' = lo + (valid slots) beside n_nodes'.  The routing kernel
+// then writes the next superstep's splitPre:
+//   * in the same pass over the cases, each case's next slot in place:
+//     its node - lo' when that lies in [lo', lo' + n_open'), n_open' =
+//     min(K, n_nodes' - lo'), else -1, or -2 (SLOT_CLOSED) once its node
+//     is a leaf.  A case of slot -1 (an open node outside the frontier)
+//     reads its node word; a case of slot -2 reads its slot word alone;
+//   * from its first K threads the K-wide planes: ids (lo' + j, the dump
+//     row M past n_open'), valid, ids_safe, total_w (the node's class
+//     frequencies summed in class order), depth_k and pre_leaf (pure,
+//     below 2 min_objs, or at max_depth), as the plain split_pre computes
+//     them from the node rows the node kernel has written.
 //
 // Exactness: the children's frequencies and weights are sums of the
 // histogram's cells; with integral weights below 2^24 they are exact in
@@ -67,8 +86,10 @@
 #define STATUS_LEAF 3
 // a weighted count below this is an empty partition (entropy.EPS_W)
 #define EPS_W 1e-7f
+// the slot of a case whose node is a leaf (the next frontier only)
+#define SLOT_CLOSED -2
 
-// stats words (kernels/split_post.py STATS, then n_nodes)
+// stats words (kernels/split_post.py STATS, then lo and n_nodes)
 #define ST_PROCESSED 0
 #define ST_ACTIVE 1
 #define ST_INTERNAL 2
@@ -76,7 +97,8 @@
 #define ST_MAX_R 4
 #define ST_NAP 5
 #define ST_OVERFLOW 6
-#define ST_N_NODES 7
+#define ST_LO 7
+#define ST_N_NODES 8
 
 // cost models (core/cost_models.py COST_MODELS)
 #define MODEL_ALPHA 0
@@ -115,8 +137,9 @@ struct NodeArgs {
   uint8_t* active;           // (M + 1, A)
   const int32_t* n_nodes;    // 0-d
   const uint8_t* overflow;   // 0-d
+  const int32_t* lo;         // 0-d, the open range's first id; null: 0
   int4* route;               // (K,)
-  int32_t* stats;            // 8 words
+  int32_t* stats;            // 9 words
   int k, a, b, c, m;
   int cost_model;
   float n_total, alpha;
@@ -246,6 +269,7 @@ split_post_nodes_kernel(const NodeArgs p) {
       p.stats[ST_MAX_R] = __float_as_int(mx);
       p.stats[ST_NAP] = n_nap;
       p.stats[ST_OVERFLOW] = (*p.overflow || over) ? 1 : 0;
+      p.stats[ST_LO] = (p.lo ? *p.lo : 0) + n_valid;
       p.stats[ST_N_NODES] = n0 + children;
     }
     __syncthreads();                           // s_best_v is reused below
@@ -380,26 +404,84 @@ split_post_nodes_kernel(const NodeArgs p) {
     p.route[r] = make_int4(t.attr, sb, child0, 2 * heaviest + t.is_cont);
 }
 
+// The next frontier's K-wide planes and the node rows they read: a
+// routing launch without them (ids null) writes no next frontier.
+struct NextArgs {
+  int64_t* ids;
+  uint8_t* valid;
+  int64_t* ids_safe;
+  float* total_w;
+  int32_t* depth_k;
+  uint8_t* pre_leaf;
+  const float* node_freq;    // (M + 1, C)
+  const int32_t* node_depth;
+  int c, m;
+  float min_w;               // 2 min_objs
+  int max_depth;
+};
+
+// Slot j of the next frontier [lo, lo + n_open): split_pre's stop tests.
+__device__ __forceinline__ void next_slot(const NextArgs& q, int j, int lo,
+                                          int n_open) {
+  const bool v = j < n_open;
+  const int64_t id = v ? (int64_t)lo + j : q.m;
+  const int64_t safe = id < q.m ? id : q.m - 1;
+  float tw = 0.0f;
+  int nonzero = 0;
+  if (v) {
+    const float* f = q.node_freq + safe * q.c;
+    for (int c = 0; c < q.c; ++c) {
+      tw += f[c];
+      nonzero += f[c] > EPS_W;
+    }
+  }
+  const int depth = q.node_depth[safe];
+  q.ids[j] = id;
+  q.valid[j] = v;
+  q.ids_safe[j] = safe;
+  q.total_w[j] = tw;
+  q.depth_k[j] = depth;
+  q.pre_leaf[j] = nonzero <= 1 || tw < q.min_w || depth >= q.max_depth;
+}
+
 __global__ void __launch_bounds__(THREADS)
-split_post_route_kernel(const int32_t* __restrict__ slot,
-                        const int32_t* __restrict__ x,
+split_post_route_kernel(int32_t* slot, const int32_t* __restrict__ x,
                         const int4* __restrict__ route,
-                        int32_t* __restrict__ case_node,
-                        int32_t* __restrict__ stats, int64_t n, int n_attrs,
-                        int k) {
+                        int32_t* __restrict__ case_node, int32_t* stats,
+                        int64_t n, int n_attrs, int k, const NextArgs q) {
   __shared__ int s_warp[WARPS];
+  const bool ahead = q.ids != nullptr;
+  const int lo = ahead ? stats[ST_LO] : 0;
+  const int n_open = ahead ? min(k, stats[ST_N_NODES] - lo) : 0;
+  const int64_t first = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * THREADS;
+  if (ahead)
+    for (int64_t j = first; j < k; j += stride) next_slot(q, (int)j, lo, n_open);
   int live = 0;
-  for (int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * THREADS) {
+  for (int64_t i = first; i < n; i += stride) {
     const int s = slot[i];
-    if (s < 0) continue;
-    ++live;
-    if (s >= k) continue;
-    const int4 e = __ldg(route + s);
-    if (e.x < 0) continue;                     // the node did not split
-    const int b = __ldg(x + i * n_attrs + e.x);
-    const int j = b < 0 ? (e.w >> 1) : ((e.w & 1) ? (b <= e.y ? 0 : 1) : b);
-    case_node[i] = e.z + j;
+    int node;
+    if (s < 0) {
+      if (!ahead || s == SLOT_CLOSED) continue;
+      node = case_node[i];                     // open, outside the frontier
+    } else {
+      ++live;
+      if (s >= k) continue;
+      const int4 e = __ldg(route + s);
+      if (e.x < 0) {                           // the node did not split
+        if (ahead) slot[i] = SLOT_CLOSED;
+        continue;
+      }
+      const int b = __ldg(x + i * n_attrs + e.x);
+      const int j = b < 0 ? (e.w >> 1) : ((e.w & 1) ? (b <= e.y ? 0 : 1) : b);
+      node = e.z + j;
+      case_node[i] = node;
+    }
+    if (ahead) {
+      const unsigned d = (unsigned)(node - lo);
+      const int next = d < (unsigned)n_open ? (int)d : -1;
+      if (next != s) slot[i] = next;
+    }
   }
   live = block_sum(live, s_warp);
   if (threadIdx.x == 0 && live) atomicAdd(stats + ST_ACTIVE, live);
@@ -415,8 +497,8 @@ extern "C" int split_post_nodes_launch(
     void* node_attr, void* node_split_bin, void* node_child0,
     void* node_nchild, void* node_class, void* node_freq, void* node_depth,
     void* status, void* active, const void* n_nodes, const void* overflow,
-    void* route, void* stats, int k, int a, int b, int c, int m,
-    int cost_model, float n_total, float alpha, void* stream) {
+    const void* lo, void* route, void* stats, int k, int a, int b, int c,
+    int m, int cost_model, float n_total, float alpha, void* stream) {
   if (k < 1 || a < 1 || b < 1 || c < 1 || m < 1)
     return (int)cudaErrorInvalidValue;
   NodeArgs p;
@@ -449,6 +531,7 @@ extern "C" int split_post_nodes_launch(
   p.active = (uint8_t*)active;
   p.n_nodes = (const int32_t*)n_nodes;
   p.overflow = (const uint8_t*)overflow;
+  p.lo = (const int32_t*)lo;
   p.route = (int4*)route;
   p.stats = (int32_t*)stats;
   p.k = k;
@@ -464,17 +547,33 @@ extern "C" int split_post_nodes_launch(
   return (int)cudaGetLastError();
 }
 
-extern "C" int split_post_route_launch(const void* slot, const void* x,
-                                       const void* route, void* case_node,
-                                       void* stats, long long n, int a,
-                                       int k, void* stream) {
+extern "C" int split_post_route_launch(
+    void* slot, const void* x, const void* route, void* case_node,
+    void* stats, long long n, int a, int k, void* ids, void* valid,
+    void* ids_safe, void* total_w, void* depth_k, void* pre_leaf,
+    const void* node_freq, const void* node_depth, int c, int m,
+    float min_w, int max_depth, void* stream) {
+  if (ids && (c < 1 || m < 1)) return (int)cudaErrorInvalidValue;
+  NextArgs q;
+  q.ids = (int64_t*)ids;
+  q.valid = (uint8_t*)valid;
+  q.ids_safe = (int64_t*)ids_safe;
+  q.total_w = (float*)total_w;
+  q.depth_k = (int32_t*)depth_k;
+  q.pre_leaf = (uint8_t*)pre_leaf;
+  q.node_freq = (const float*)node_freq;
+  q.node_depth = (const int32_t*)node_depth;
+  q.c = c;
+  q.m = m;
+  q.min_w = min_w;
+  q.max_depth = max_depth;
   long long blocks = (n + THREADS - 1) / THREADS;
   if (blocks > ROUTE_BLOCKS_MAX) blocks = ROUTE_BLOCKS_MAX;
   if (blocks < 1) blocks = 1;
   split_post_route_kernel<<<(unsigned)blocks, THREADS, 0,
                             (cudaStream_t)stream>>>(
-      (const int32_t*)slot, (const int32_t*)x, (const int4*)route,
-      (int32_t*)case_node, (int32_t*)stats, (int64_t)n, a, k);
+      (int32_t*)slot, (const int32_t*)x, (const int4*)route,
+      (int32_t*)case_node, (int32_t*)stats, (int64_t)n, a, k, q);
   return (int)cudaGetLastError();
 }
 

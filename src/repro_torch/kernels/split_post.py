@@ -9,10 +9,16 @@ CUDA tensors only; the plain version is the torch body of
 
 It updates the state in place, as the plain version updates the node
 arrays: the node arrays, ``status``, ``active`` and ``case_node``.  The
-new ``n_nodes``, ``overflow`` and the superstep's statistics are 0-d views
-of one small int32 tensor the node kernel writes, so nothing is read back
-to the host and nothing waits.  No custom op: only the frontier engine
-calls it, on a state it owns.
+new ``overflow``, the new open range ``(lo, n_nodes)`` and the
+superstep's statistics are views of one small int32 tensor the node kernel
+writes, so nothing is read back to the host and nothing waits.  Given
+``ahead`` (a state whose open nodes are the id range ``[lo, n_nodes)``,
+``core.frontier.OpenRange``), the routing kernel also writes the next
+superstep's splitPre: ``ahead``'s K-wide planes, and ``pre["slot"]`` in
+place.  The frontier engine's ``impl="cuda"`` build then waits for the card
+once a superstep outside splitAtt, at the loop's read of the range: its
+splitPre launches nothing and reads nothing.  No custom op: only the
+frontier engine calls it, on a state it owns.
 """
 
 from __future__ import annotations
@@ -29,7 +35,8 @@ from repro_torch.kernels import _build
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 
-# The statistics' words in the node kernel's output, then the new n_nodes.
+# The statistics' words in the node kernel's output, then the new lo and
+# n_nodes.
 STATS = ("n_processed", "n_active", "n_internal", "n_children", "max_r",
          "nap_nodes", "overflow")
 COST_MODELS = ("alpha", "nlogn", "nsq")        # core.cost_models' order
@@ -38,11 +45,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
-_NODE_ARGTYPES = ([_P] * 7 + [_L, _L, _P, _L, _L] + [_P] * 19 + [_I] * 6
+_NODE_ARGTYPES = ([_P] * 7 + [_L, _L, _P, _L, _L] + [_P] * 20 + [_I] * 6
                   + [_F, _F, _P])
-_ROUTE_ARGTYPES = [_P] * 5 + [_L, _I, _I, _P]
+_ROUTE_ARGTYPES = ([_P] * 5 + [_L, _I, _I] + [_P] * 8 + [_I, _I, _F, _I]
+                   + [_P])
+_INT32_MAX = 2 ** 31 - 1
 
-# (name, dtype) of the per-slot inputs: splitPre's, then splitAtt's
+# (name, dtype) of splitPre's K-wide planes
 _PRE = (("ids", torch.int64), ("valid", torch.bool), ("ids_safe", torch.int64),
         ("total_w", torch.float32), ("depth_k", torch.int32),
         ("pre_leaf", torch.bool))
@@ -84,18 +93,29 @@ def split_post(tree, status: torch.Tensor, active: torch.Tensor,
                overflow: torch.Tensor, pre: dict, att: dict,
                x: torch.Tensor, attr_is_cont: torch.Tensor,
                n_bins: torch.Tensor, *, cost_model: str,
-               n_total_cases: float, alpha: float
+               n_total_cases: float, alpha: float, ahead: dict | None = None,
+               lo: torch.Tensor | None = None, min_objs: float | None = None,
+               max_depth: int | None = None
                ) -> tuple[torch.Tensor, torch.Tensor, dict]:
     """splitPost of one superstep on the card: ``tree``'s node arrays
     (M + 1 rows, row M the dump row), ``status``, ``active`` and
     ``case_node`` updated in place from splitPre's ``pre`` and splitAtt's
     ``att`` (the keys :func:`repro_torch.core.frontier.split_pre` and
-    ``split_att`` return).  Returns the new ``n_nodes``, the new
+    ``split_att`` return).  Returns the new open range ``(lo, n_nodes)``
+    (int32 (2,); ``lo`` counts from ``lo``'s value, 0 without it), the new
     ``overflow`` and the statistics, the keys of :data:`STATS` (0-d int32
     views, ``max_r`` float32, ``overflow`` bool).
 
     ``cost_model``, ``n_total_cases`` and ``alpha`` are the NAP test's
-    (:func:`repro_torch.core.cost_models.build_att_test`)."""
+    (:func:`repro_torch.core.cost_models.build_att_test`).
+
+    ``ahead`` (splitPre's K-wide planes, the keys of ``_PRE``; ``pre``'s
+    own may be given, since the routing kernel writes them after the node
+    kernel has read them) has the routing kernel write the next
+    superstep's splitPre for open nodes that are the id range ``[lo,
+    n_nodes)`` (``lo`` 0-d int32): the planes into ``ahead``, each case's
+    slot into ``pre["slot"]`` (-2 once its node is a leaf), with
+    ``min_objs`` and ``max_depth`` the stop tests'."""
     if cost_model not in COST_MODELS:
         raise ValueError(f"unknown cost model {cost_model!r}; choose from "
                          f"{COST_MODELS}")
@@ -139,6 +159,21 @@ def split_post(tree, status: torch.Tensor, active: torch.Tensor,
     _check(case_node, "case_node", torch.int32, (n,))
     _check(n_nodes, "n_nodes", torch.int32, ())
     _check(overflow, "overflow", torch.bool, ())
+    nxt = []
+    if lo is not None:
+        _check(lo, "lo", torch.int32, ())
+        nxt.append(lo)
+    # the routing kernel's next frontier: its planes and stop tests
+    planes, min_w, depth_cap = [None] * len(_PRE), 0.0, 0
+    if ahead is not None:
+        if lo is None or min_objs is None or max_depth is None:
+            raise ValueError("the next frontier needs lo, min_objs and "
+                             "max_depth")
+        for name, dtype in _PRE:
+            _check(ahead[name], f"ahead {name}", dtype, (k,))
+        nxt += [ahead[name] for name, _ in _PRE]
+        planes = [ahead[name].data_ptr() for name, _ in _PRE]
+        min_w, depth_cap = 2.0 * min_objs, min(max_depth, _INT32_MAX)
     _check(x, "x", torch.int32, (n, a_dim))
     _check(attr_is_cont, "attr_is_cont", torch.bool, (a_dim,))
     _check(n_bins, "n_bins", torch.int32, (a_dim,))
@@ -148,13 +183,13 @@ def split_post(tree, status: torch.Tensor, active: torch.Tensor,
         overflow, attr_is_cont, n_bins, tree.node_freq] + [
         att[name] for name in ("split_bin", "active_k", "best_attr",
                                "has_split")] + [
-        getattr(tree, name) for name, _ in _NODES]
+        getattr(tree, name) for name, _ in _NODES] + nxt
     if dev.type != "cuda" or any(t.device != dev for t in ins):
         raise ValueError("the CUDA splitPost takes CUDA tensors on one "
                          f"device, got {sorted({str(t.device) for t in ins})}")
 
     route = torch.empty((k, 4), dtype=torch.int32, device=dev)
-    words = torch.empty((len(STATS) + 1,), dtype=torch.int32, device=dev)
+    words = torch.empty((len(STATS) + 2,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         lib = _lib()
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -169,7 +204,8 @@ def split_post(tree, status: torch.Tensor, active: torch.Tensor,
                 "node_attr", "node_split_bin", "node_child0", "node_nchild",
                 "node_class", "node_freq", "node_depth")),
             status.data_ptr(), active.data_ptr(), n_nodes.data_ptr(),
-            overflow.data_ptr(), route.data_ptr(), words.data_ptr(),
+            overflow.data_ptr(), None if lo is None else lo.data_ptr(),
+            route.data_ptr(), words.data_ptr(),
             k, a_dim, b_dim, c_dim, m1 - 1,
             COST_MODELS.index(cost_model), float(n_total_cases),
             float(alpha), stream)
@@ -179,7 +215,9 @@ def split_post(tree, status: torch.Tensor, active: torch.Tensor,
         _count()
         err = lib.split_post_route_launch(
             pre["slot"].data_ptr(), x.data_ptr(), route.data_ptr(),
-            case_node.data_ptr(), words.data_ptr(), n, a_dim, k, stream)
+            case_node.data_ptr(), words.data_ptr(), n, a_dim, k, *planes,
+            tree.node_freq.data_ptr(), tree.node_depth.data_ptr(), c_dim,
+            m1 - 1, min_w, depth_cap, stream)
         if err:
             raise RuntimeError("split_post routing kernel launch failed: "
                                + lib.split_post_error(err).decode())
@@ -189,4 +227,4 @@ def split_post(tree, status: torch.Tensor, active: torch.Tensor,
     stats["max_r"] = w[STATS.index("max_r")].view(torch.float32)
     i = STATS.index("overflow")
     stats["overflow"] = words[i:i + 1].view(torch.bool)[0]
-    return w[len(STATS)], stats["overflow"], stats
+    return words[len(STATS):], stats["overflow"], stats

@@ -154,11 +154,15 @@ def split_gain_ops(k: int, a: int, b: int, c: int) -> int:
     return k * a * b * (6 * c + 20)
 
 
-def split_post_bytes(n: int, live: int) -> int:
+def split_post_bytes(n: int, live: int, waiting: int = 0,
+                     changed: int = 0) -> int:
     """splitPost's routing: each case's int32 slot read once; a live case's
     bin of its node's split attribute read and its new node written (the
-    node kernel's K rows are negligible beside N)."""
-    return n * 4 + live * 8
+    node kernel's K rows are negligible beside N).  Writing the next
+    frontier (an open range) it also reads the node of each of the
+    ``waiting`` cases (slot -1: an open node outside the frontier) and
+    writes each of the ``changed`` slots."""
+    return n * 4 + live * 8 + waiting * 4 + changed * 4
 
 
 def traversal_bytes(n: int, a: int, t: int, rows: int) -> int:

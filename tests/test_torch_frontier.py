@@ -8,7 +8,9 @@ exact, node frequencies within trees_equal's atol 1e-3 / rtol 1e-4.
 
 import numpy as np
 import pytest
+import torch
 
+from _frontier_sets import as_tensors, kdd_like
 from conftest import make_tree_dataset
 from repro.core import c45
 from repro.core import frontier as jf
@@ -191,3 +193,103 @@ def test_split_post_default_is_the_plain_version_and_matches_jax(rng):
         retired |= bool((~state.active[:m][state.status[:m] > 0]).any())
         steps += 1
     assert steps > 2 and retired and bool(state.overflow)
+
+
+# ------------------------------------------ the open nodes: one id range
+
+def _walk_set(name):
+    if name == "kdd_like":
+        return kdd_like(1_000, 7)
+    return datasets.load(name, scale=0.0003, max_bins=64)
+
+
+@pytest.mark.parametrize("name,cfg_kw,masked", [
+    ("syd10m9a", dict(frontier_slots=64), False),
+    ("syd10m9a", dict(frontier_slots=8), False),
+    ("syd10m9a", dict(max_nodes=200, frontier_slots=16), False),
+    ("syd10m9a", dict(frontier_slots=16, max_depth=3), False),
+    ("syd10m9a", dict(frontier_slots=16), True),
+    ("waveform40", dict(frontier_slots=32), False),
+    ("kdd_like", dict(frontier_slots=64), False)],
+    ids=["syd", "syd-8-slots", "syd-capacity", "syd-depth-3",
+         "syd-attr-mask", "waveform40", "kdd_like"])
+def test_open_nodes_are_one_id_range_every_superstep(name, cfg_kw, masked):
+    """What the ``cuda`` build's ``OpenRange`` rests on, on the plain path:
+    before every superstep the open ids are exactly ``[lo, n_nodes)``,
+    splitPre takes ``n_open = min(K, n_nodes - lo)`` of them from ``lo``,
+    and a case's slot is its node less ``lo`` inside that frontier, -1
+    outside; ``lo`` then moves past them.  SyD at 64 and 8 slots, capped
+    so that it overflows, cut at depth 3 and with an attribute mask;
+    Waveform-40 (C 3, A 40); a KDD-like set with unknown values."""
+    ds = _walk_set(name)
+    cfg = GrowConfig(**{"max_nodes": 4096, **cfg_kw})
+    prob = frontier.FrontierProblem.from_dataset(ds, cfg)
+    x, y, w, cont, nb = as_tensors(ds)
+    mask = torch.as_tensor(np.arange(ds.n_attrs) % 3 != 1) if masked else None
+    state = frontier.init_state(prob, y, w, mask)
+    m, k = cfg.max_nodes, cfg.frontier_slots
+    lo = steps = 0
+    overflow = False
+    while True:
+        n_nodes = int(state.n_nodes)
+        open_ids = torch.nonzero(state.status[:m] == 1).flatten()
+        assert torch.equal(open_ids, torch.arange(lo, n_nodes)), steps
+        if lo == n_nodes:
+            break
+        pre = frontier.split_pre(state, prob=prob)
+        n_open = min(k, n_nodes - lo)
+        assert pre["n_open"] == n_open
+        assert torch.equal(pre["ids"][:n_open], torch.arange(lo, lo + n_open))
+        rel = state.case_node.long() - lo
+        assert torch.equal(pre["slot"], torch.where(
+            (rel >= 0) & (rel < n_open), rel, -1).to(torch.int32))
+        att = frontier.split_att(state, pre, x, y, w, cont, nb, prob=prob,
+                                 impl="torch")
+        state, stats = frontier.split_post(state, pre, att, x, cont, nb,
+                                           prob=prob)
+        overflow |= bool(stats["overflow"])
+        lo += n_open
+        steps += 1
+    assert steps > 2
+    assert overflow == (m < 1000)
+
+
+@pytest.mark.parametrize("open_range,read", [
+    (False, True), (True, True), (True, False)],
+    ids=["plain", "open-range", "open-range-unread"])
+def test_split_pre_with_and_without_the_open_range(open_range, read):
+    """A state made without the open range (the ``torch`` build's, one
+    made by hand) takes the plain splitPre, which waits for its
+    ``nonzero`` (``wait.frontier``).  The ``cuda`` build's root state
+    carries its frontier: once the loop's test has read the range its
+    splitPre waits for nothing and its planes are the plain ones exactly;
+    before that read, splitPre refuses it."""
+    import dataclasses
+
+    from repro_torch.obs import Tracer
+    from repro_torch.obs.trace import NULL
+    ds = _walk_set("syd10m9a")
+    cfg = GrowConfig(max_nodes=4096, frontier_slots=16)
+    prob = frontier.FrontierProblem.from_dataset(ds, cfg)
+    _, y, w, _, _ = as_tensors(ds)
+    state = frontier.init_state(prob, y, w, open_range=open_range)
+    assert (state.open_range is not None) == open_range
+    if read:
+        assert frontier._open_left(state, cfg, NULL)
+    elif open_range:
+        with pytest.raises(RuntimeError, match="has not read"):
+            frontier.split_pre(state, prob=prob)
+        return
+    tr = Tracer()
+    pre = frontier.split_pre(state, prob=prob, tracer=tr)
+    waits = {s for s in tr.span_summary() if s.startswith("wait.")}
+    assert waits == (set() if open_range else {"wait.frontier"})
+    plain = frontier.split_pre(dataclasses.replace(state, open_range=None),
+                               prob=prob)
+    assert pre.keys() == plain.keys()
+    for key, want in plain.items():
+        if isinstance(want, torch.Tensor):
+            assert pre[key].dtype == want.dtype, key
+            assert torch.equal(pre[key], want), key
+        else:
+            assert pre[key] == want, key

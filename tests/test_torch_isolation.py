@@ -200,6 +200,36 @@ def test_split_post_wrapper_refuses_a_non_contiguous_input(name):
     assert split_post.LAUNCHES == 0
 
 
+@pytest.mark.parametrize("fault,error,match", [
+    ("no lo", ValueError, "needs lo"),
+    ("ids int32", TypeError, "ahead ids must be"),
+    ("total_w short", ValueError, "ahead total_w has shape"),
+    ("lo int64", TypeError, "lo must be")])
+def test_split_post_wrapper_refuses_a_malformed_next_frontier(fault, error,
+                                                              match):
+    """The next frontier's planes, ``lo`` and the stop tests' parameters
+    are checked as splitPre's are: a missing one, a wrong dtype or shape
+    is refused before any launch."""
+    from repro_torch.kernels import split_post
+    _, state, pre, att, data = _root_superstep()
+    ahead = {name: torch.empty_like(pre[name]) for name in (
+        "ids", "valid", "ids_safe", "total_w", "depth_k", "pre_leaf")}
+    nxt = dict(ahead=ahead, lo=torch.zeros((), dtype=torch.int32),
+               min_objs=2.0, max_depth=64)
+    if fault == "no lo":
+        nxt["lo"] = None
+    elif fault == "ids int32":
+        ahead["ids"] = ahead["ids"].int()
+    elif fault == "total_w short":
+        ahead["total_w"] = ahead["total_w"][:-1]
+    else:
+        nxt["lo"] = nxt["lo"].long()
+    args, kw = _post_args(state, pre, att, data)
+    with pytest.raises(error, match=match):
+        split_post.split_post(*args, **kw, **nxt)
+    assert split_post.LAUNCHES == 0
+
+
 def test_superstep_torch_launches_no_kernel():
     """superstep(impl="torch") and a CPU build run the plain splitPost:
     no kernel of the three is launched."""

@@ -276,30 +276,14 @@ def _assert_same_post(plain, got, m):
         k: v.item() for k, v in want_stats.items()}
 
 
-def _kdd_like(n, seed):
-    """A KDD-like data set: 41 attributes (34 continuous of 64 bins, 5%
-    unknown; 7 discrete of 3-70 values), 23 classes; the labels follow a
-    few attributes, with noise."""
-    from repro_torch.core import binning
-    rng = np.random.default_rng(seed)
-    cards = (3, 70, 11, 2, 40, 5, 23)
-    cont = rng.integers(0, 64, (n, 34))
-    cont[rng.random((n, 34)) < 0.05] = -1
-    disc = np.stack([rng.integers(0, c, n) for c in cards], 1)
-    y = (disc[:, 1] + cont[:, 0] // 8 + disc[:, 5] * 3) % 23
-    y = np.where(rng.random(n) < 0.1, rng.integers(0, 23, n), y)
-    return binning.from_binned(
-        np.concatenate([cont, disc], 1), y,
-        attr_is_cont=[True] * 34 + [False] * 7, n_bins=[64] * 34 + list(cards),
-        n_classes=23)
-
-
 def _post_walk_dataset(name):
+    from _frontier_sets import kdd_like
     from repro_torch.data import datasets
     if name == "kdd_like":
-        return _kdd_like(20_000, 7)
+        return kdd_like(20_000, 7)
     name, scale = {"syd": ("syd10m9a", 0.001),
-                   "census": ("census_pums", 0.01)}[name]
+                   "census": ("census_pums", 0.01),
+                   "waveform40": ("waveform40", 0.002)}[name]
     return datasets.load(name, scale=scale, max_bins=64)
 
 
@@ -352,6 +336,104 @@ def test_split_post_kernels_equal_plain_every_superstep(dev, name, max_nodes,
     assert seen["unknown"] or name != "kdd_like", seen
     assert seen["overflow"] or not capped, seen
     assert seen["full"] or slots == 64, seen
+
+
+@pytest.mark.parametrize("name,max_nodes,slots", [
+    ("syd", 1 << 12, 64), ("syd", 1 << 12, 8), ("kdd_like", 1 << 12, 32),
+    ("census", 1 << 14, 64), ("syd", 200, 16), ("kdd_like", 300, 64),
+    ("waveform40", 1 << 12, 32)],
+    ids=["syd", "syd-8-slots", "kdd_like", "census", "syd-capacity",
+         "kdd_like-capacity", "waveform40"])
+def test_open_range_next_frontier_equals_plain_split_pre(dev, name,
+                                                         max_nodes, slots):
+    """Every superstep of the ``cuda`` build's loop, the frontier that
+    splitPost's kernels wrote (``ids``, ``valid``, ``ids_safe``,
+    ``total_w``, ``depth_k``, ``pre_leaf``, each case's slot, and
+    ``n_open`` from the loop's read of the range) equals the plain
+    ``split_pre`` on the same state exactly, a slot of -2 (a closed
+    node's case) reading as the plain -1; the cases of
+    ``test_split_post_kernels_equal_plain_every_superstep`` and
+    Waveform-40 (C 3, A 40).  The build's tree equals
+    ``build(impl="torch")``'s."""
+    from repro_torch.core import frontier
+    from repro_torch.core.config import GrowConfig
+    from repro_torch.core.tree import trees_equal
+    from repro_torch.obs.trace import NULL
+    ds = _post_walk_dataset(name)
+    cfg = GrowConfig(max_nodes=max_nodes, frontier_slots=slots)
+    prob = frontier.FrontierProblem.from_dataset(ds, cfg)
+    from _frontier_sets import as_tensors
+    x, y, w, cont, nb = as_tensors(ds, dev)
+    state = frontier.init_state(prob, y, w, open_range=True)
+    seen = dict(waiting=False, closed=False, short=False)
+    steps = 0
+    while frontier._open_left(state, cfg, NULL):
+        pre = frontier.split_pre(state, prob=prob)
+        want = frontier.split_pre(dataclasses.replace(state, open_range=None),
+                                  prob=prob)
+        assert pre["n_open"] == want["n_open"], steps
+        for key in ("ids", "valid", "ids_safe", "total_w", "depth_k",
+                    "pre_leaf"):
+            assert pre[key].dtype == want[key].dtype, key
+            assert torch.equal(pre[key], want[key]), (key, steps)
+        slot = pre["slot"]
+        assert torch.equal(torch.where(slot < 0, -1, slot), want["slot"]), \
+            steps
+        seen["waiting"] |= bool((slot == -1).any())
+        seen["closed"] |= bool((slot == -2).any())
+        seen["short"] |= pre["n_open"] < slots
+        att = frontier.split_att(state, pre, x, y, w, cont, nb, prob=prob,
+                                 impl="cuda")
+        state, _ = frontier.split_post(state, pre, att, x, cont, nb,
+                                       prob=prob, impl="cuda")
+        steps += 1
+    assert steps > 1 and seen["closed"] and seen["short"], seen
+    assert seen["waiting"] or slots == 64, seen
+    assert trees_equal(frontier.build(ds, cfg),
+                       frontier.build(ds, cfg, impl="torch", device=dev))
+
+
+def test_split_pre_of_an_open_range_launches_nothing(dev):
+    """Under ``torch.profiler``, ``split_pre`` on the ``cuda`` build's state
+    (the loop's test has read the range) records no torch op and nothing
+    on the card: no kernel, no copy, no fill.  The plain ``split_pre`` on
+    the same state records its launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import frontier
+    from repro_torch.core.config import GrowConfig
+    from repro_torch.obs.trace import NULL
+    ds = _post_walk_dataset("syd")
+    cfg = GrowConfig(max_nodes=1 << 12, frontier_slots=16)
+    prob = frontier.FrontierProblem.from_dataset(ds, cfg)
+    from _frontier_sets import as_tensors
+    x, y, w, cont, nb = as_tensors(ds, dev)
+    state = frontier.init_state(prob, y, w, open_range=True)
+    for _ in range(4):
+        assert frontier._open_left(state, cfg, NULL)
+        pre = frontier.split_pre(state, prob=prob)
+        att = frontier.split_att(state, pre, x, y, w, cont, nb, prob=prob,
+                                 impl="cuda")
+        state, _ = frontier.split_post(state, pre, att, x, cont, nb,
+                                       prob=prob, impl="cuda")
+    assert frontier._open_left(state, cfg, NULL)
+    torch.cuda.synchronize()
+
+    def recorded(fn):
+        """The torch ops and the card's events of ``fn``."""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        return ([e.name for e in events if e.name.startswith("aten::")],
+                [e.name for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA])
+    ops, card = recorded(lambda: frontier.split_pre(state, prob=prob))
+    assert ops == [] and card == [], (ops, card)
+    ops, card = recorded(lambda: frontier.split_pre(
+        dataclasses.replace(state, open_range=None), prob=prob))
+    assert ops and card, (ops, card)
 
 
 @pytest.mark.parametrize("model", ["alpha", "nlogn", "nsq"])
@@ -456,7 +538,8 @@ def test_traced_build_equals_untraced_on_the_card(dev):
     """frontier.build(impl="cuda") with an enabled tracer (spans that add
     no wait for the card) grows the untraced tree, with a span of each
     phase, each wait and each kernel call a superstep (``wait.status``
-    once, the root's), and a histogram and split-gain launch and two
+    once, the root's; no ``wait.frontier``: splitPre reads the frontier
+    splitPost's kernels wrote), and a histogram and split-gain launch and two
     splitPost launches each superstep; the registry holds the frontier's
     counters and gauges and no ``frontier_phase_seconds``."""
     from repro_torch.core import frontier
@@ -475,11 +558,13 @@ def test_traced_build_equals_untraced_on_the_card(dev):
     assert trees_equal(plain, traced)
     summ = tr.span_summary()
     for span in ("superstep", "splitPre", "splitAtt", "splitPost",
-                 "wait.frontier", "compact", "wait.compact",
+                 "compact", "wait.compact",
                  "kernel.histogram", "kernel.split_gain",
                  "kernel.split_post"):
         assert summ[span]["count"] == len(rows), span
     assert summ["wait.loop"]["count"] == len(rows) + 1
+    # splitPre reads the frontier splitPost's kernels wrote: no wait
+    assert "wait.frontier" not in summ
     # the root's status write alone: the CUDA splitPost writes none
     for span in ("entry.copy", "entry.init", "wait.stats", "wait.status"):
         assert summ[span]["count"] == 1, span
@@ -500,10 +585,11 @@ def test_tracer_adds_one_synchronising_call_a_build(dev, monkeypatch):
     stats a build makes exactly one more than the untraced build of the
     same tree, the one read of the statistics after the loop, and the
     same calls at every other line.  Past the entry's copies of the rows
-    (``build``'s own lines) the untraced build makes exactly 3N + 2, at
-    the traced ``wait.*`` spans' lines: the loop's N + 1 tests, two
-    ``nonzero`` a superstep, the root's status write.  splitPost makes
-    none: no call in its lines nor in its kernels' wrapper."""
+    (``build``'s own lines) the untraced build makes exactly 2N + 2, at
+    the traced ``wait.*`` spans' lines: the loop's N + 1 reads of the open
+    range, the compaction's ``nonzero`` a superstep, the root's status
+    write.  splitPre and splitPost make none: no call in their lines nor
+    in splitPost's kernels' wrapper."""
     import collections
     import inspect
     import warnings
@@ -560,13 +646,14 @@ def test_tracer_adds_one_synchronising_call_a_build(dev, monkeypatch):
         src, start = inspect.getsourcelines(fn)
         return range(start, start + len(src))
     entry = lines(frontier.build)
-    post = [*lines(frontier.split_post), *lines(frontier._split_post_cuda)]
+    quiet = [*lines(frontier.split_pre), *lines(frontier.split_post),
+             *lines(frontier._split_post_cuda)]
     assert not [site for site in untraced if site[0] == "split_post.py"
-                or site[0] == "frontier.py" and site[1] in post], untraced
+                or site[0] == "frontier.py" and site[1] in quiet], untraced
     waits = sum(n for (f, line), n in untraced.items()
                 if f == "compaction.py"
                 or f == "frontier.py" and line not in entry)
-    assert waits == 3 * n_steps + 2, (untraced, n_steps)
+    assert waits == 2 * n_steps + 2, (untraced, n_steps)
 
 
 def test_concurrent_builds_from_threads(dev):

@@ -185,12 +185,20 @@ def test_analyze_splits_evenly_and_picks_the_peak():
         rl.model_flops_for("yi_6b", "train_4k"))
 
 
-@pytest.mark.parametrize("n,live,want_ms", [
-    (10_000_000, 10_000_000, 0.0358), (10_000_000, 21_620, 0.0120),
-    (1, 0, 0.0)], ids=["syd-root", "syd-superstep-500", "n1-closed"])
-def test_split_post_bound_counts_slots_and_live_cases(n, live, want_ms):
+@pytest.mark.parametrize("n,live,waiting,changed,want_ms", [
+    (10_000_000, 10_000_000, 0, 0, 0.0358),
+    (10_000_000, 21_620, 0, 0, 0.0120), (1, 0, 0, 0, 0.0),
+    (10_000_000, 10_000_000, 0, 10_000_000, 0.0478),
+    (10_000_000, 21_620, 1_000_000, 500_000, 0.0138)],
+    ids=["syd-root", "syd-superstep-500", "n1-closed", "syd-root-ahead",
+         "syd-superstep-500-ahead"])
+def test_split_post_bound_counts_slots_and_live_cases(n, live, waiting,
+                                                      changed, want_ms):
     """splitPost's bound: 4 bytes of slot a case, 8 of bin and node a live
-    case, at the f32 rate's byte side (PERF.md section 6's row)."""
-    got = _chip_smoke().bound(rl.split_post_bytes(n, live), 0)
-    assert got == ((4 * n + 8 * live) / OLD_HBM * 1e3, "bytes")
+    case, and writing the next frontier 4 of node a waiting case and 4 a
+    changed slot, at the f32 rate's byte side (PERF.md section 6's row)."""
+    got = _chip_smoke().bound(
+        rl.split_post_bytes(n, live, waiting, changed), 0)
+    assert got == ((4 * n + 8 * live + 4 * waiting + 4 * changed)
+                   / OLD_HBM * 1e3, "bytes")
     assert got[0] == pytest.approx(want_ms, abs=5e-5)
