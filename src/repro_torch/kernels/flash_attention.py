@@ -35,10 +35,8 @@ and the shared memory), all passed to the launches.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
-import threading
 from dataclasses import dataclass
 
 import torch
@@ -56,12 +54,6 @@ LAUNCHES = 0
 LAUNCHES_BY_DTYPE = {"bfloat16": 0, "float32": 0}
 LAUNCHES_BWD = 0
 LAUNCHES_BWD_BY_DTYPE = {"bfloat16": 0, "float32": 0}
-# Launches from several threads: _LAUNCH_LOCK makes each kernel's
-# shared-memory opt-in (set before every launch) and its launch one step, so
-# another thread's lower opt-in cannot land between them; _COUNT_LOCK keeps
-# the counts exact.
-_LAUNCH_LOCK = threading.Lock()
-_COUNT_LOCK = threading.Lock()
 
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
@@ -84,40 +76,17 @@ _TMA_MAX_DIM = 1 << 32
 _TMA_MAX_STRIDE = 1 << 40
 _MAX_GRID_Y = 65_535
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
-_U64 = ctypes.POINTER(ctypes.c_uint64)
-_U32 = ctypes.POINTER(ctypes.c_uint32)
-_F32_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]
-_BF16_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                  _F, _U64, _U64, _U64, _U64, _U32, _I, _I, _P]
-_BWD_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                 _I, _I, _I, _F, _P]
-_BWD_BF16_ARGTYPES = [_P] * 10 + [_P, _I, _P, _I] + [_I] * 7 + [
-    _F, _U64, _U64, _U64, _U64, _U32, _I, _I, _I, _P]
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("flash_attention")
-    lib.flash_attention_f32_launch.argtypes = _F32_ARGTYPES
-    lib.flash_attention_f32_launch.restype = ctypes.c_int
-    lib.flash_attention_bf16_launch.argtypes = _BF16_ARGTYPES
-    lib.flash_attention_bf16_launch.restype = ctypes.c_int
-    lib.flash_attention_error.argtypes = [ctypes.c_int]
-    lib.flash_attention_error.restype = ctypes.c_char_p
-    return lib
-
-
-def _bwd_lib() -> ctypes.CDLL:
-    lib = _build.library("flash_attention_bwd")
-    lib.flash_attention_bwd_launch.argtypes = _BWD_ARGTYPES
-    lib.flash_attention_bwd_launch.restype = ctypes.c_int
-    lib.flash_attention_bwd_bf16_launch.argtypes = _BWD_BF16_ARGTYPES
-    lib.flash_attention_bwd_bf16_launch.restype = ctypes.c_int
-    lib.flash_attention_bwd_error.argtypes = [ctypes.c_int]
-    lib.flash_attention_bwd_error.restype = ctypes.c_char_p
-    return lib
+# Each kernel's shared-memory opt-in is set before every launch.
+_FWD = _build.Library(
+    "flash_attention", "flash_attention_error", counts=__name__,
+    by="LAUNCHES_BY_DTYPE", opt_in=True,
+    entries={"flash_attention_f32_launch": "5p 7i f",
+             "flash_attention_bf16_launch": "6p 8i f 4Q I 2i"})
+_BWD = _build.Library(
+    "flash_attention_bwd", "flash_attention_bwd_error", counts=__name__,
+    total="LAUNCHES_BWD", by="LAUNCHES_BWD_BY_DTYPE", opt_in=True,
+    entries={"flash_attention_bwd_launch": "i 10p 7i f",
+             "flash_attention_bwd_bf16_launch": "11p i p 8i f 4Q I 3i"})
 
 
 def tile_plan(sq: int, sk: int, window: int, bq: int = BQ
@@ -271,33 +240,10 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{softcap}")
 
 
-def _count(dtype: str) -> None:
-    """Count one launch of the ``dtype`` forward kernel."""
-    global LAUNCHES
-    with _COUNT_LOCK:
-        LAUNCHES += 1
-        LAUNCHES_BY_DTYPE[dtype] += 1
-
-
-def _count_bwd(dtype: str) -> None:
-    """Count one launch of the ``dtype`` backward."""
-    global LAUNCHES_BWD
-    with _COUNT_LOCK:
-        LAUNCHES_BWD += 1
-        LAUNCHES_BWD_BY_DTYPE[dtype] += 1
-
-
 def reset_launches() -> None:
     """Set every count of this module to 0."""
-    global LAUNCHES, LAUNCHES_BWD
-    with _COUNT_LOCK:
-        LAUNCHES = LAUNCHES_BWD = 0
-        for counts in (LAUNCHES_BY_DTYPE, LAUNCHES_BWD_BY_DTYPE):
-            counts.update(bfloat16=0, float32=0)
-
-
-def _u64(values) -> ctypes.Array:
-    return (ctypes.c_uint64 * len(values))(*values)
+    _build.reset_counts(_FWD)
+    _build.reset_counts(_BWD)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -363,27 +309,20 @@ def _launch_fwd(qs: Tensor, k: Tensor, v: Tensor, window: int,
            if with_lse else None)
     if b == 0 or sq == 0:
         return out, lse
-    with _LAUNCH_LOCK, torch.cuda.device(dev):
-        lib = _lib()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        ptrs = (qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr() if with_lse else None)
-        if bf16:
-            plan = _plan_tensor(sq, sk, int(window), dev)
-            err = lib.flash_attention_bf16_launch(
-                *ptrs, plan.data_ptr(), geo.grid[1], b, sq, sk, h, kv, d,
-                int(window), float(softcap), _u64(geo.q_dims),
-                _u64(geo.q_strides), _u64(geo.kv_dims), _u64(geo.kv_strides),
-                (ctypes.c_uint32 * 4)(*geo.box), geo.d_pad, geo.smem_bytes,
-                stream)
-        else:
-            err = lib.flash_attention_f32_launch(
-                *ptrs, b, sq, sk, h, kv, d, int(window), float(softcap),
-                stream)
-    if err:
-        raise RuntimeError("flash_attention launch failed: "
-                           + lib.flash_attention_error(err).decode())
-    _count("bfloat16" if bf16 else "float32")
+    ptrs = (qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None)
+    if bf16:
+        plan = _plan_tensor(sq, sk, int(window), dev)
+        _build.launch(
+            _FWD, "flash_attention_bf16_launch", dev, *ptrs, plan.data_ptr(),
+            geo.grid[1], b, sq, sk, h, kv, d, int(window), float(softcap),
+            _build.u64(geo.q_dims), _build.u64(geo.q_strides),
+            _build.u64(geo.kv_dims), _build.u64(geo.kv_strides),
+            _build.u32(geo.box), geo.d_pad, geo.smem_bytes, label="bfloat16")
+    else:
+        _build.launch(
+            _FWD, "flash_attention_f32_launch", dev, *ptrs, b, sq, sk, h, kv,
+            d, int(window), float(softcap), label="float32")
     return out, lse
 
 
@@ -477,26 +416,20 @@ def _bwd_op(qs: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor,
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     ptrs = [t.data_ptr() for t in (qs, k, v, o, do, lse, delta, dq, dk, dv)]
-    with _LAUNCH_LOCK, torch.cuda.device(dev):
-        lib = _bwd_lib()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if bf16:
-            plans, n_kv, n_q = _bwd_plan_tensor(sq, sk, int(window), dev)
-            err = lib.flash_attention_bwd_bf16_launch(
-                *ptrs, plans.data_ptr(), n_kv,
-                plans.data_ptr() + 3 * 4 * n_kv, n_q, b, sq, sk, h, kv, d,
-                int(window), float(softcap), _u64(geo.q_dims),
-                _u64(geo.q_strides), _u64(geo.kv_dims), _u64(geo.kv_strides),
-                (ctypes.c_uint32 * 4)(*geo.box), geo.d_pad,
-                *bwd_smem_bytes(geo.d_pad), stream)
-        else:
-            err = lib.flash_attention_bwd_launch(
-                0, *ptrs, b, sq, sk, h, kv, d, int(window), float(softcap),
-                stream)
-    if err:
-        raise RuntimeError("flash_attention_bwd launch failed: "
-                           + lib.flash_attention_bwd_error(err).decode())
-    _count_bwd("bfloat16" if bf16 else "float32")
+    if bf16:
+        plans, n_kv, n_q = _bwd_plan_tensor(sq, sk, int(window), dev)
+        _build.launch(
+            _BWD, "flash_attention_bwd_bf16_launch", dev, *ptrs,
+            plans.data_ptr(), n_kv, plans.data_ptr() + 3 * 4 * n_kv, n_q, b,
+            sq, sk, h, kv, d, int(window), float(softcap),
+            _build.u64(geo.q_dims), _build.u64(geo.q_strides),
+            _build.u64(geo.kv_dims), _build.u64(geo.kv_strides),
+            _build.u32(geo.box), geo.d_pad, *bwd_smem_bytes(geo.d_pad),
+            label="bfloat16")
+    else:
+        _build.launch(
+            _BWD, "flash_attention_bwd_launch", dev, 0, *ptrs, b, sq, sk, h,
+            kv, d, int(window), float(softcap), label="float32")
     return dq, dk, dv
 
 

@@ -12,9 +12,6 @@ gets an empty output of the right shape and launches nothing, and under
 
 from __future__ import annotations
 
-import ctypes
-import threading
-
 import torch
 from torch import Tensor
 from torch.utils.flop_counter import register_flop_formula
@@ -26,45 +23,11 @@ from repro_torch.launch import roofline
 LAUNCHES = 0
 # Launches by plan ("direct", "shared"): which accumulation path ran.
 PLANS = {"direct": 0, "shared": 0}
-# The farm's workers launch from several threads at once.  _LAUNCH_LOCK
-# makes the kernel's shared-memory opt-in (a static of the C side) and its
-# launch one step, so no launch runs under another thread's lower opt-in;
-# _COUNT_LOCK keeps the counts exact.
-_LAUNCH_LOCK = threading.Lock()
-_COUNT_LOCK = threading.Lock()
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _P, ctypes.c_longlong] + [_I] * 11 + [_P]
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("histogram")
-    lib.frontier_histogram_launch.argtypes = _ARGTYPES
-    lib.frontier_histogram_launch.restype = ctypes.c_int
-    lib.frontier_histogram_error.argtypes = [ctypes.c_int]
-    lib.frontier_histogram_error.restype = ctypes.c_char_p
-    return lib
-
-
-def _count(mode: str) -> None:
-    """Count one launch of plan ``mode``."""
-    global LAUNCHES
-    with _COUNT_LOCK:
-        LAUNCHES += 1
-        PLANS[mode] += 1
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(
-            f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+# The kernel's shared-memory opt-in is a static of the C side.
+_LIB = _build.Library(
+    "histogram", "frontier_histogram_error", counts=__name__, by="PLANS",
+    opt_in=True, entries={"frontier_histogram_launch": "5p q 11i"})
 
 
 def frontier_histogram(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
@@ -86,10 +49,10 @@ def frontier_histogram(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     if x.ndim != 2:
         raise ValueError(f"x must be (N, A), got shape {tuple(x.shape)}")
     n, a_dim = x.shape
-    _check(x, "x", torch.int32, (n, a_dim), dev)
-    _check(y, "y", torch.int32, (n,), dev)
-    _check(w, "w", torch.float32, (n,), dev)
-    _check(slot, "slot", torch.int32, (n,), dev)
+    _build.check(x, "x", torch.int32, (n, a_dim), dev)
+    _build.check(y, "y", torch.int32, (n,), dev)
+    _build.check(w, "w", torch.float32, (n,), dev)
+    _build.check(slot, "slot", torch.int32, (n,), dev)
     return _op(x, y, w, slot, n_slots, n_bins, n_classes, n_live_slots,
                block_t, block_k)
 
@@ -109,18 +72,11 @@ def _op(x: Tensor, y: Tensor, w: Tensor, slot: Tensor, n_slots: int,
         n_cases=n, n_slots=n_slots, n_bins=n_bins, n_classes=n_classes,
         n_attrs=a_dim, n_live_slots=n_live_slots, block_t=block_t,
         block_k=block_k)
-    with _LAUNCH_LOCK, torch.cuda.device(dev):
-        lib = _lib()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.frontier_histogram_launch(
-            x.data_ptr(), y.data_ptr(), w.data_ptr(), slot.data_ptr(),
-            out.data_ptr(), n, a_dim, n_slots, plan.live, n_bins, n_classes,
-            plan.block_k, plan.block_t, plan.blocks, plan.windows,
-            plan.threads, plan.smem, stream)
-    if err:
-        raise RuntimeError("frontier_histogram launch failed: "
-                           + lib.frontier_histogram_error(err).decode())
-    _count(plan.mode)
+    _build.launch(
+        _LIB, "frontier_histogram_launch", dev, x.data_ptr(), y.data_ptr(),
+        w.data_ptr(), slot.data_ptr(), out.data_ptr(), n, a_dim, n_slots,
+        plan.live, n_bins, n_classes, plan.block_k, plan.block_t,
+        plan.blocks, plan.windows, plan.threads, plan.smem, label=plan.mode)
     return out
 
 

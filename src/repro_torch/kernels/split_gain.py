@@ -11,9 +11,6 @@ counts ``launch.roofline.split_gain_ops``.
 
 from __future__ import annotations
 
-import ctypes
-import threading
-
 import torch
 from torch import Tensor
 from torch.utils.flop_counter import register_flop_formula
@@ -23,34 +20,12 @@ from repro_torch.launch import roofline
 
 # Launches of the kernel in this process (the main path's proof of use).
 LAUNCHES = 0
-# The farm's workers launch from several threads at once.  _LAUNCH_LOCK
-# makes the kernel's shared-memory opt-in (a static of the C side) and its
-# launch one step, so no launch runs under another thread's lower opt-in;
-# _COUNT_LOCK keeps the counts exact.
-_LAUNCH_LOCK = threading.Lock()
-_COUNT_LOCK = threading.Lock()
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_ARGTYPES = [_P, ctypes.c_longlong, ctypes.c_longlong, _P, _P, _P, _P, _P,
-             _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I, _I, _I, _P]
 CRITERIA = ("gain", "gain_ratio")
 
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("split_gain")
-    lib.split_gain_launch.argtypes = _ARGTYPES
-    lib.split_gain_launch.restype = ctypes.c_int
-    lib.split_gain_error.argtypes = [ctypes.c_int]
-    lib.split_gain_error.restype = ctypes.c_char_p
-    return lib
-
-
-def _count() -> None:
-    """Count one launch."""
-    global LAUNCHES
-    with _COUNT_LOCK:
-        LAUNCHES += 1
+# The kernel's shared-memory opt-in is a static of the C side.
+_LIB = _build.Library(
+    "split_gain", "split_gain_error", counts=__name__, opt_in=True,
+    entries={"split_gain_launch": "p 2q 5p 4i f 6i"})
 
 
 def split_gain(hist: torch.Tensor, total_w: torch.Tensor,
@@ -80,11 +55,7 @@ def split_gain(hist: torch.Tensor, total_w: torch.Tensor,
                                   (attr_is_cont, "attr_is_cont", torch.bool,
                                    (a_dim,)),
                                   (n_bins, "n_bins", torch.int32, (a_dim,))):
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(
-                f"{name} must be a contiguous {dtype} {shape} tensor on "
-                f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+        _build.check(t, name, dtype, shape, dev, dtype_error=ValueError)
     if k and a_dim and (b_dim == 0 or c_dim == 0):
         raise ValueError(f"hist needs B >= 1 and C >= 1, got {b_dim}, {c_dim}")
     return _op(hist, total_w, attr_is_cont, n_bins, float(min_objs),
@@ -104,19 +75,12 @@ def _op(hist: Tensor, total_w: Tensor, attr_is_cont: Tensor, n_bins: Tensor,
         return score, split_bin
     plan = autotune.plan_split_gain(n_bins=b_dim, n_classes=c_dim,
                                     block_b=block_b)
-    with _LAUNCH_LOCK, torch.cuda.device(dev):
-        lib = _lib()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.split_gain_launch(
-            hist.data_ptr(), hist.stride(0), hist.stride(1),
-            total_w.data_ptr(), attr_is_cont.data_ptr(), n_bins.data_ptr(),
-            score.data_ptr(), split_bin.data_ptr(), k, a_dim, b_dim, c_dim,
-            float(min_objs), int(criterion == "gain_ratio"), plan.warps,
-            int(plan.regs), plan.seg, plan.seg_pad, plan.smem, stream)
-    if err:
-        raise RuntimeError("split_gain launch failed: "
-                           + lib.split_gain_error(err).decode())
-    _count()
+    _build.launch(
+        _LIB, "split_gain_launch", dev, hist.data_ptr(), hist.stride(0),
+        hist.stride(1), total_w.data_ptr(), attr_is_cont.data_ptr(),
+        n_bins.data_ptr(), score.data_ptr(), split_bin.data_ptr(), k, a_dim,
+        b_dim, c_dim, float(min_objs), int(criterion == "gain_ratio"),
+        plan.warps, int(plan.regs), plan.seg, plan.seg_pad, plan.smem)
     return score, split_bin
 
 

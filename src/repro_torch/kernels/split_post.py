@@ -23,9 +23,6 @@ frontier engine calls it, on a state it owns.
 
 from __future__ import annotations
 
-import ctypes
-import threading
-
 import torch
 
 from repro_torch.kernels import _build
@@ -33,7 +30,6 @@ from repro_torch.kernels import _build
 # Launches of the two kernels in this process (the main path's proof of
 # use: two a superstep).
 LAUNCHES = 0
-_COUNT_LOCK = threading.Lock()
 
 # The statistics' words in the node kernel's output, then the new lo and
 # n_nodes.
@@ -41,14 +37,10 @@ STATS = ("n_processed", "n_active", "n_internal", "n_children", "max_r",
          "nap_nodes", "overflow")
 COST_MODELS = ("alpha", "nlogn", "nsq")        # core.cost_models' order
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_L = ctypes.c_longlong
-_F = ctypes.c_float
-_NODE_ARGTYPES = ([_P] * 7 + [_L, _L, _P, _L, _L] + [_P] * 20 + [_I] * 6
-                  + [_F, _F, _P])
-_ROUTE_ARGTYPES = ([_P] * 5 + [_L, _I, _I] + [_P] * 8 + [_I, _I, _F, _I]
-                   + [_P])
+_LIB = _build.Library(
+    "split_post", "split_post_error", counts=__name__,
+    entries={"split_post_nodes_launch": "7p 2q p 2q 20p 6i 2f",
+             "split_post_route_launch": "5p q 2i 8p 2i f i"})
 _INT32_MAX = 2 ** 31 - 1
 
 # (name, dtype) of splitPre's K-wide planes
@@ -58,34 +50,6 @@ _PRE = (("ids", torch.int64), ("valid", torch.bool), ("ids_safe", torch.int64),
 _NODES = (("node_attr", torch.int32), ("node_split_bin", torch.int32),
           ("node_child0", torch.int32), ("node_nchild", torch.int32),
           ("node_class", torch.int32), ("node_depth", torch.int32))
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("split_post")
-    lib.split_post_nodes_launch.argtypes = _NODE_ARGTYPES
-    lib.split_post_nodes_launch.restype = ctypes.c_int
-    lib.split_post_route_launch.argtypes = _ROUTE_ARGTYPES
-    lib.split_post_route_launch.restype = ctypes.c_int
-    lib.split_post_error.argtypes = [ctypes.c_int]
-    lib.split_post_error.restype = ctypes.c_char_p
-    return lib
-
-
-def _count() -> None:
-    """Count one launch."""
-    global LAUNCHES
-    with _COUNT_LOCK:
-        LAUNCHES += 1
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(
-            f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def split_post(tree, status: torch.Tensor, active: torch.Tensor,
@@ -143,25 +107,25 @@ def split_post(tree, status: torch.Tensor, active: torch.Tensor,
         raise ValueError(f"empty splitPost: K {k}, A {a_dim}, B {b_dim}, "
                          f"C {c_dim}, M + 1 {m1}")
     for name, dtype in _PRE:
-        _check(pre[name], name, dtype, (k,))
-    _check(pre["slot"], "slot", torch.int32, (n,))
+        _build.check(pre[name], name, dtype, (k,))
+    _build.check(pre["slot"], "slot", torch.int32, (n,))
     for name, dtype, shape in (
             ("split_bin", torch.int32, (k, a_dim)),
             ("active_k", torch.bool, (k, a_dim)),
             ("best_attr", torch.int32, (k,)),
             ("has_split", torch.bool, (k,))):
-        _check(att[name], name, dtype, shape)
+        _build.check(att[name], name, dtype, shape)
     for name, dtype in _NODES:
-        _check(getattr(tree, name), name, dtype, (m1,))
-    _check(tree.node_freq, "node_freq", torch.float32, (m1, c_dim))
-    _check(status, "status", torch.int32, (m1,))
-    _check(active, "active", torch.bool, (m1, a_dim))
-    _check(case_node, "case_node", torch.int32, (n,))
-    _check(n_nodes, "n_nodes", torch.int32, ())
-    _check(overflow, "overflow", torch.bool, ())
+        _build.check(getattr(tree, name), name, dtype, (m1,))
+    _build.check(tree.node_freq, "node_freq", torch.float32, (m1, c_dim))
+    _build.check(status, "status", torch.int32, (m1,))
+    _build.check(active, "active", torch.bool, (m1, a_dim))
+    _build.check(case_node, "case_node", torch.int32, (n,))
+    _build.check(n_nodes, "n_nodes", torch.int32, ())
+    _build.check(overflow, "overflow", torch.bool, ())
     nxt = []
     if lo is not None:
-        _check(lo, "lo", torch.int32, ())
+        _build.check(lo, "lo", torch.int32, ())
         nxt.append(lo)
     # the routing kernel's next frontier: its planes and stop tests
     planes, min_w, depth_cap = [None] * len(_PRE), 0.0, 0
@@ -170,13 +134,13 @@ def split_post(tree, status: torch.Tensor, active: torch.Tensor,
             raise ValueError("the next frontier needs lo, min_objs and "
                              "max_depth")
         for name, dtype in _PRE:
-            _check(ahead[name], f"ahead {name}", dtype, (k,))
+            _build.check(ahead[name], f"ahead {name}", dtype, (k,))
         nxt += [ahead[name] for name, _ in _PRE]
         planes = [ahead[name].data_ptr() for name, _ in _PRE]
         min_w, depth_cap = 2.0 * min_objs, min(max_depth, _INT32_MAX)
-    _check(x, "x", torch.int32, (n, a_dim))
-    _check(attr_is_cont, "attr_is_cont", torch.bool, (a_dim,))
-    _check(n_bins, "n_bins", torch.int32, (a_dim,))
+    _build.check(x, "x", torch.int32, (n, a_dim))
+    _build.check(attr_is_cont, "attr_is_cont", torch.bool, (a_dim,))
+    _build.check(n_bins, "n_bins", torch.int32, (a_dim,))
     dev = x.device
     ins = [pre[name] for name, _ in _PRE] + [
         pre["slot"], hist, unknown, status, active, case_node, n_nodes,
@@ -190,38 +154,27 @@ def split_post(tree, status: torch.Tensor, active: torch.Tensor,
 
     route = torch.empty((k, 4), dtype=torch.int32, device=dev)
     words = torch.empty((len(STATS) + 2,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        lib = _lib()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.split_post_nodes_launch(
-            *(pre[name].data_ptr() for name, _ in _PRE),
-            hist.data_ptr(), hist.stride(0), hist.stride(1),
-            unknown.data_ptr(), unknown.stride(0), unknown.stride(1),
-            *(att[name].data_ptr() for name in ("split_bin", "active_k",
-                                                "best_attr", "has_split")),
-            attr_is_cont.data_ptr(), n_bins.data_ptr(),
-            *(getattr(tree, name).data_ptr() for name in (
-                "node_attr", "node_split_bin", "node_child0", "node_nchild",
-                "node_class", "node_freq", "node_depth")),
-            status.data_ptr(), active.data_ptr(), n_nodes.data_ptr(),
-            overflow.data_ptr(), None if lo is None else lo.data_ptr(),
-            route.data_ptr(), words.data_ptr(),
-            k, a_dim, b_dim, c_dim, m1 - 1,
-            COST_MODELS.index(cost_model), float(n_total_cases),
-            float(alpha), stream)
-        if err:
-            raise RuntimeError("split_post node kernel launch failed: "
-                               + lib.split_post_error(err).decode())
-        _count()
-        err = lib.split_post_route_launch(
-            pre["slot"].data_ptr(), x.data_ptr(), route.data_ptr(),
-            case_node.data_ptr(), words.data_ptr(), n, a_dim, k, *planes,
-            tree.node_freq.data_ptr(), tree.node_depth.data_ptr(), c_dim,
-            m1 - 1, min_w, depth_cap, stream)
-        if err:
-            raise RuntimeError("split_post routing kernel launch failed: "
-                               + lib.split_post_error(err).decode())
-        _count()
+    _build.launch(
+        _LIB, "split_post_nodes_launch", dev,
+        *(pre[name].data_ptr() for name, _ in _PRE),
+        hist.data_ptr(), hist.stride(0), hist.stride(1),
+        unknown.data_ptr(), unknown.stride(0), unknown.stride(1),
+        *(att[name].data_ptr() for name in ("split_bin", "active_k",
+                                            "best_attr", "has_split")),
+        attr_is_cont.data_ptr(), n_bins.data_ptr(),
+        *(getattr(tree, name).data_ptr() for name in (
+            "node_attr", "node_split_bin", "node_child0", "node_nchild",
+            "node_class", "node_freq", "node_depth")),
+        status.data_ptr(), active.data_ptr(), n_nodes.data_ptr(),
+        overflow.data_ptr(), None if lo is None else lo.data_ptr(),
+        route.data_ptr(), words.data_ptr(),
+        k, a_dim, b_dim, c_dim, m1 - 1,
+        COST_MODELS.index(cost_model), float(n_total_cases), float(alpha))
+    _build.launch(
+        _LIB, "split_post_route_launch", dev, pre["slot"].data_ptr(),
+        x.data_ptr(), route.data_ptr(), case_node.data_ptr(),
+        words.data_ptr(), n, a_dim, k, *planes, tree.node_freq.data_ptr(),
+        tree.node_depth.data_ptr(), c_dim, m1 - 1, min_w, depth_cap)
     w = words.unbind()
     stats = dict(zip(STATS, w))
     stats["max_r"] = w[STATS.index("max_r")].view(torch.float32)

@@ -13,9 +13,6 @@ levels (at most what the data takes: a meta tensor holds none).
 
 from __future__ import annotations
 
-import ctypes
-import threading
-
 import torch
 from torch import Tensor
 from torch.utils.flop_counter import register_flop_formula
@@ -32,30 +29,10 @@ NODE_COLS = 8          # 6 live columns padded to 8: two int4 loads a row
 # a small batch on every SM).
 LAUNCHES = 0
 PLANS = {"wide": 0, "spread": 0}
-# exact under launches from several threads
-_COUNT_LOCK = threading.Lock()
 
-_P = ctypes.c_void_p
-_ARGTYPES = [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, _P]
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("tree_infer")
-    lib.forest_predict_launch.argtypes = _ARGTYPES
-    lib.forest_predict_launch.restype = ctypes.c_int
-    lib.forest_predict_error.argtypes = [ctypes.c_int]
-    lib.forest_predict_error.restype = ctypes.c_char_p
-    return lib
-
-
-def _count(mode: str) -> None:
-    """Count one launch of plan ``mode``."""
-    global LAUNCHES
-    with _COUNT_LOCK:
-        LAUNCHES += 1
-        PLANS[mode] += 1
+_LIB = _build.Library(
+    "tree_infer", "forest_predict_error", counts=__name__, by="PLANS",
+    entries={"forest_predict_launch": "4p q i q 4i"})
 
 
 def forest_predict(node_tab: torch.Tensor, x_bins: torch.Tensor,
@@ -83,11 +60,7 @@ def forest_predict(node_tab: torch.Tensor, x_bins: torch.Tensor,
             (node_tab, "node_tab", torch.int32, (t_dim, m_dim, NODE_COLS)),
             (x_bins, "x_bins", torch.int32, (n, a_dim)),
             (attr_is_cont, "attr_is_cont", torch.bool, (a_dim,))):
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(
-                f"{name} must be a contiguous {dtype} {shape} tensor on "
-                f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+        _build.check(t, name, dtype, shape, dev, dtype_error=ValueError)
     if max_depth < 0:
         raise ValueError(f"max_depth must be >= 0, got {max_depth}")
     if n and t_dim and m_dim == 0:
@@ -107,17 +80,11 @@ def _op(node_tab: Tensor, x_bins: Tensor, attr_is_cont: Tensor,
         return out
     plan = autotune.plan_infer_blocks(n_cases=n, n_trees=t_dim,
                                       block_n=block_n)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.forest_predict_launch(
-            node_tab.data_ptr(), x_bins.data_ptr(), attr_is_cont.data_ptr(),
-            out.data_ptr(), n, a_dim, t_dim, m_dim, int(max_depth),
-            plan.threads, plan.tree_blocks, stream)
-    if err:
-        raise RuntimeError("forest_predict launch failed: "
-                           + lib.forest_predict_error(err).decode())
-    _count(plan.mode)
+    _build.launch(
+        _LIB, "forest_predict_launch", dev, node_tab.data_ptr(),
+        x_bins.data_ptr(), attr_is_cont.data_ptr(), out.data_ptr(), n, a_dim,
+        t_dim, m_dim, int(max_depth), plan.threads, plan.tree_blocks,
+        label=plan.mode)
     return out
 
 

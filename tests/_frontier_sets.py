@@ -2,6 +2,7 @@
 their tensors: a helper of the CPU tests and the card tests alike."""
 
 import numpy as np
+import pytest
 import torch
 
 from repro_torch.core import binning
@@ -15,6 +16,23 @@ def as_tensors(ds, device=None):
             torch.as_tensor(ds.w, dtype=torch.float32, device=device),
             torch.as_tensor(ds.attr_is_cont, device=device),
             torch.as_tensor(ds.n_bins, dtype=torch.int32, device=device))
+
+
+@pytest.fixture
+def one_thread():
+    """torch's CPU ops on one thread for the test (import the fixture,
+    then ``@pytest.mark.usefixtures("one_thread")``).  The plain path
+    scores whole (K, A, B, C) histograms a superstep; on every core of the
+    host, in each of the suite's parallel workers at once, those ops spend
+    their time at OpenMP barriers: on 8 cores, the KDD-like walk of 1,000
+    cases took 2.8 s alone and 527 s in each of six such processes at
+    once, 14 s on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def kdd_like(n, seed):

@@ -408,7 +408,10 @@ def test_launch_counts_exact_under_threads(module, counter, plans, key,
                                            monkeypatch):
     import importlib
     import sys
+    from repro_torch.kernels import _build
     mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    lib = getattr(mod, "_LIB", None) or mod._FWD     # flash: the forward's
+    assert (lib.total, lib.by) == (counter, plans)
     monkeypatch.setattr(mod, counter, 0)
     if plans:
         monkeypatch.setattr(mod, plans, dict(getattr(mod, plans)))
@@ -417,16 +420,15 @@ def test_launch_counts_exact_under_threads(module, counter, plans, key,
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        n = _hammer(lambda: mod._count(key) if key else mod._count())
+        n = _hammer(lambda: _build.count(lib, key))
     finally:
         sys.setswitchinterval(old)
     assert getattr(mod, counter) == n
     if plans:
         assert getattr(mod, plans)[key] == n
     # the update is the lock's: a count waits while another thread holds it
-    bump = threading.Thread(
-        target=lambda: mod._count(key) if key else mod._count())
-    with mod._COUNT_LOCK:
+    bump = threading.Thread(target=lambda: _build.count(lib, key))
+    with _build._COUNT_LOCK:
         bump.start()
         bump.join(0.2)
         assert bump.is_alive() and getattr(mod, counter) == n

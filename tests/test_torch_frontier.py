@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from _frontier_sets import as_tensors, kdd_like
+from _frontier_sets import as_tensors, kdd_like, one_thread  # noqa: F401
 from conftest import make_tree_dataset
 from repro.core import c45
 from repro.core import frontier as jf
@@ -198,8 +198,8 @@ def test_split_post_default_is_the_plain_version_and_matches_jax(rng):
 # ------------------------------------------ the open nodes: one id range
 
 def _walk_set(name):
-    if name == "kdd_like":
-        return kdd_like(1_000, 7)
+    if name == "kdd_like":           # 297 nodes, a 70-way root, 6 supersteps
+        return kdd_like(300, 7)
     return datasets.load(name, scale=0.0003, max_bins=64)
 
 
@@ -213,6 +213,7 @@ def _walk_set(name):
     ("kdd_like", dict(frontier_slots=64), False)],
     ids=["syd", "syd-8-slots", "syd-capacity", "syd-depth-3",
          "syd-attr-mask", "waveform40", "kdd_like"])
+@pytest.mark.usefixtures("one_thread")
 def test_open_nodes_are_one_id_range_every_superstep(name, cfg_kw, masked):
     """What the ``cuda`` build's ``OpenRange`` rests on, on the plain path:
     before every superstep the open ids are exactly ``[lo, n_nodes)``,

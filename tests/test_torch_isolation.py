@@ -117,6 +117,80 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert histogram.LAUNCHES == 0 and split_gain.LAUNCHES == 0
 
 
+def test_build_binds_each_signature_once_and_counts_launches(monkeypatch):
+    """``_build.launch`` on a fake library: the signatures are set once a
+    process whatever the launches, the stream comes last, a non-zero return
+    raises with the library's error text and is not counted, and every
+    successful launch is counted under its label."""
+    import contextlib
+    import ctypes
+    import types
+    from repro_torch.kernels import _build
+    sets, calls, rets = [], [], {"fake_a_launch": 0, "fake_b_launch": 0}
+
+    class Fn:
+        def __init__(self, name):
+            object.__setattr__(self, "name", name)
+
+        def __setattr__(self, attr, value):
+            sets.append((self.name, attr))
+            object.__setattr__(self, attr, value)
+
+        def __call__(self, *args):
+            calls.append((self.name, args))
+            if self.name == "fake_error":
+                return f"fake error {args[0]}".encode()
+            return rets[self.name]
+
+    class Lib:
+        def __init__(self):
+            self.fns = {}
+
+        def __getattr__(self, name):
+            return self.fns.setdefault(name, Fn(name))
+
+    loads = []
+    monkeypatch.setattr(_build, "library",
+                        lambda name: loads.append(name) or Lib())
+    monkeypatch.setattr(_build, "_BOUND", {})
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=1234))
+    counts = types.ModuleType("fake_counts")
+    counts.LAUNCHES, counts.PLANS = 0, {"a": 0, "b": 0}
+    monkeypatch.setitem(sys.modules, "fake_counts", counts)
+    lib = _build.Library("fake", "fake_error", counts="fake_counts",
+                         by="PLANS", opt_in=True,
+                         entries={"fake_a_launch": "2p q i f",
+                                  "fake_b_launch": "i"})
+    dev = torch.device("cuda", 0)
+    for i in range(3):
+        _build.launch(lib, "fake_a_launch", dev, 1, 2, 3, i, 0.5, label="a")
+    for _ in range(2):
+        _build.launch(lib, "fake_b_launch", dev, 9, label="b")
+    assert loads == ["fake"]
+    assert sorted(sets) == sorted(
+        (fn, attr) for fn in ("fake_a_launch", "fake_b_launch", "fake_error")
+        for attr in ("argtypes", "restype"))
+    fns = _build._BOUND["fake"]
+    assert fns["fake_a_launch"].argtypes == [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p]
+    assert fns["fake_b_launch"].argtypes == [ctypes.c_int, ctypes.c_void_p]
+    assert fns["fake_error"].restype is ctypes.c_char_p
+    assert calls[2] == ("fake_a_launch", (1, 2, 3, 2, 0.5, 1234))
+    assert calls[3] == ("fake_b_launch", (9, 1234))
+    assert (counts.LAUNCHES, counts.PLANS) == (5, {"a": 3, "b": 2})
+
+    rets["fake_a_launch"] = 7
+    with pytest.raises(RuntimeError,
+                       match="fake_a_launch: launch failed: fake error 7"):
+        _build.launch(lib, "fake_a_launch", dev, 1, 2, 3, 4, 0.5, label="a")
+    assert (counts.LAUNCHES, counts.PLANS) == (5, {"a": 3, "b": 2})
+    assert len(sets) == 6 and loads == ["fake"]
+
+
 def _root_superstep():
     """The tiny dataset's root state and its splitPre / splitAtt planes on
     the CPU: ``(prob, state, pre, att, (x, y, w, cont, nb))``."""

@@ -17,6 +17,7 @@ ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
+from _frontier_sets import one_thread  # noqa: E402,F401
 from bench import harness, reference, spec  # noqa: E402
 from repro_torch.core import frontier  # noqa: E402
 from repro_torch.core.config import GrowConfig  # noqa: E402
@@ -31,10 +32,12 @@ def _frozen(n: int, seed: int):
 
 
 # (cases, node capacity): the 2,048 cap is hit at 20k cases; min_objs 30
-# at 3k cases lets the tree end on its own
+# at 3k cases lets the tree end on its own.  Each superstep of the plain
+# path scores the whole (256, 40, 257, 3) histogram: ~0.9 s on one thread.
 @pytest.mark.parametrize("n,cap,min_objs", [(20_000, 2_048, 2.0),
                                             (3_000, 1 << 18, 30.0)])
 @pytest.mark.parametrize("seed", (0, 7, 2**31 + 9))
+@pytest.mark.usefixtures("one_thread")
 def test_port_grows_the_reference_tree(n, cap, min_objs, seed):
     cfg, d = _frozen(n, seed)
     grow = {**cfg["grow"], "max_nodes": cap, "min_objs": min_objs}
