@@ -14,8 +14,9 @@ Phases (each one that fails ends the run with a non-zero exit):
      card, at the shapes of the SyD10M9A build and at edge shapes; times the
      kernel, the plain version and the library call.  The histogram also in
      each regime of its plan (every case in one slot, 20% live over 256
-     slots compacted, census_pums' shape in one slot and over 256, K = 1,
-     N = 1), each timed beside its bound with the plan it took; split gain
+     slots compacted and read through a list of them, census_pums' shape
+     in one slot and over 256, K = 1, N = 1), each timed beside its bound
+     with the plan it took; split gain
      timed by the profiler (its kernel alone).  splitPost's two kernels
      against the plain split_post on clones of one state of the cuda
      build (its open range on the card) at the build's root superstep
@@ -23,7 +24,9 @@ Phases (each one that fails ends the run with a non-zero exit):
      array, status, active row, case node, n_nodes, overflow and
      statistic exact, two launches each, and the next frontier they write
      (the K-wide planes, n_open, each case's slot) exactly the plain
-     split_pre's on the plain split_post's state; timed (CUDA events
+     split_pre's on the plain split_post's state, and the next superstep's
+     live cases the routing kernel lists with their count exactly the
+     plain nonzero of the next slots, as a set; timed (CUDA events
      behind a spin, the profiler beside them, each call on a clone of its
      own) against the plain version's kernels and their bound.
   3. SyD10M9A at full size (10,000,000 cases, 9 attributes, 256 bins) grown
@@ -36,7 +39,9 @@ Phases (each one that fails ends the run with a non-zero exit):
      tree must equal theirs, its superstep and splitAtt spans and
      frontier_supersteps_total must be its supersteps, and its histogram
      and split-gain launches those supersteps (with live cases, for the
-     histogram) and its splitPost launches twice as many.  Prints the time of each phase (splitPre, splitAtt,
+     histogram: the root's on the rows, every later one through the live
+     list, histogram.SOURCES) and its splitPost launches twice as many.
+     Prints the time of each phase (splitPre, splitAtt,
      splitPost: the host's time in it, its own waits included) beside the
      untraced wall time and the text report, and writes the Chrome trace to
      build/trace_syd10m9a.json.
@@ -659,6 +664,15 @@ def check_histogram(ds_x, ds_y, ds_w, n_bins, n_classes, k, gen, dev):
     got = histogram.frontier_histogram(*live, n_live_slots=k, **kw)
     sub_hist = ref.frontier_histogram_ref(ds_x, ds_y, ds_w, live_slot, **kw)
     check(torch.equal(got, sub_hist), "compacted histogram != plain")
+    # the same superstep read through a list of its live cases, as the
+    # routing kernel writes it (in no fixed order: shuffled)
+    listed = torch.nonzero(live_slot >= 0).flatten().to(torch.int32)
+    listed = listed[torch.randperm(listed.numel(), generator=gen,
+                                   device=dev)]
+    by_list = dict(case_list=listed, n_listed=listed.numel())
+    got = histogram.frontier_histogram(ds_x, ds_y, ds_w, live_slot,
+                                       n_live_slots=k, **by_list, **kw)
+    check(torch.equal(got, sub_hist), "listed histogram != plain")
 
     # edge shapes: unknown bins, slot -1, B off any tile, C = 23, wide A;
     # each under the planner's choice and both plans pinned
@@ -690,38 +704,42 @@ def check_histogram(ds_x, ds_y, ds_w, n_bins, n_classes, k, gen, dev):
     census_root = torch.zeros_like(census[3])
     m = 1_000_000
     regimes = [
-        ("root: all N in slot 0", (ds_x, ds_y, ds_w, root_slot), k, 1),
-        ("20% live over 256 slots, compacted", live, k, k),
+        ("root: all N in slot 0", (ds_x, ds_y, ds_w, root_slot), k, 1, {}),
+        ("20% live over 256 slots, compacted", live, k, k, {}),
+        ("20% live over 256 slots, listed",
+         (ds_x, ds_y, ds_w, live_slot), k, k, by_list),
         ("census A=40 B=128: all in slot 0",
-         (*census[:3], census_root), 256, 1),
-        ("census A=40 B=128: over 256 slots", census, 256, 256),
+         (*census[:3], census_root), 256, 1, {}),
+        ("census A=40 B=128: over 256 slots", census, 256, 256, {}),
         ("K=1: 1M cases", (ds_x[:m], ds_y[:m], ds_w[:m], root_slot[:m]),
-         1, 1),
-        ("n=1", (ds_x[:1], ds_y[:1], ds_w[:1], root_slot[:1]), k, 1),
+         1, 1, {}),
+        ("n=1", (ds_x[:1], ds_y[:1], ds_w[:1], root_slot[:1]), k, 1, {}),
     ]
     timed = []
-    for name, (x, y, w, s), rk, hint in regimes:
+    for name, (x, y, w, s), rk, hint, extra in regimes:
         b = 128 if x.shape[1] == 40 else n_bins
         rkw = dict(n_slots=rk, n_bins=b, n_classes=n_classes)
         got = histogram.frontier_histogram(x, y, w, s, n_live_slots=hint,
-                                           **rkw)
+                                           **extra, **rkw)
         check(torch.equal(got, ref.frontier_histogram_ref(x, y, w, s, **rkw)),
               f"histogram != plain in regime {name!r}")
+        n_cases = extra.get("n_listed", x.shape[0])
         plan = autotune.plan_histogram(
-            n_cases=x.shape[0], n_attrs=x.shape[1], n_live_slots=hint, **rkw)
+            n_cases=n_cases, n_attrs=x.shape[1], n_live_slots=hint, **rkw)
         r_ms = kernel_ms(lambda: histogram.frontier_histogram(
-            x, y, w, s, n_live_slots=hint, **rkw),
+            x, y, w, s, n_live_slots=hint, **extra, **rkw),
                          "frontier_histogram_kernel", reps=10)
         # the kernel's own work: each case row (A bins, label, weight,
-        # slot) read once, each non-zero cell written once
+        # slot; listed, its index) read once, each non-zero cell written
+        # once
         r_bound, r_by = bound(
-            rl.histogram_bytes(x.shape[0], x.shape[1],
-                               int(torch.count_nonzero(got))),
-            rl.histogram_ops(x.shape[0], x.shape[1]))
-        timed.append(dict(regime=name, N=x.shape[0], A=x.shape[1], K=rk,
+            rl.histogram_bytes(n_cases, x.shape[1],
+                               int(torch.count_nonzero(got)), bool(extra)),
+            rl.histogram_ops(n_cases, x.shape[1]))
+        timed.append(dict(regime=name, N=n_cases, A=x.shape[1], K=rk,
                           plan=plan.mode,
                           ms=r_ms, bound_ms=r_bound, bound_by=r_by))
-        print(f"histogram regime {name}: N={x.shape[0]} A={x.shape[1]} "
+        print(f"histogram regime {name}: N={n_cases} A={x.shape[1]} "
               f"K={rk} plan {plan.mode}: {r_ms:.4f} ms (bound "
               f"{r_bound:.5f} by {r_by}, {r_ms / r_bound:.1f}x)")
     del census, census_root
@@ -831,9 +849,10 @@ def _clone_state(state):
         for f in dataclasses.fields(state.tree)})
     rng = state.open_range
     if rng is not None:
-        rng = frontier.OpenRange(bounds=rng.bounds.clone(), pre={
-            k: v.clone() if isinstance(v, torch.Tensor) else v
-            for k, v in rng.pre.items()})
+        rng = dataclasses.replace(
+            rng, bounds=rng.bounds.clone(), live=rng.live.clone(), pre={
+                k: v.clone() if isinstance(v, torch.Tensor) else v
+                for k, v in rng.pre.items()})
     return frontier.GrowState(
         tree=tree, **{f: getattr(state, f).clone() for f in (
             "status", "active", "case_node", "n_nodes", "overflow")},
@@ -886,6 +905,13 @@ def _same_next(want_state, got_state, prob, where: str) -> None:
     slot = got["slot"]
     check(torch.equal(torch.where(slot < 0, -1, slot), want["slot"]),
           f"split_post next slot != plain split_pre at {where}")
+    # the next superstep's live cases, listed in no fixed order
+    rng = got_state.open_range
+    live = torch.nonzero(want["slot"] >= 0).flatten()
+    check(rng.n_live == live.numel(), f"split_post next live count "
+          f"{rng.n_live} != plain {live.numel()} at {where}")
+    check(torch.equal(torch.sort(rng.live[:rng.n_live].long()).values, live),
+          f"split_post next live list != plain nonzero at {where}")
 
 
 def check_split_post(syd, x, y, w, cont, nb, cfg, dev) -> dict:
@@ -894,7 +920,8 @@ def check_split_post(syd, x, y, w, cont, nb, cfg, dev) -> dict:
     the loop's test as the build reads it), at SyD10M9A's root superstep
     (every case live, K slots) and at superstep SPLIT_POST_DEEP_STEP of
     the same build: the state and statistics, and the next frontier the
-    kernels write against the plain ``split_pre``.  Each timed as the
+    kernels write against the plain ``split_pre`` (and the next live
+    cases they list against its ``nonzero``).  Each timed as the
     build calls it, on a clone of its own (the kernels rewrite its
     splitPre in place): the kernels' device time (CUDA events behind a
     spin; the profiler's beside it), a call's host wall time, the plain
@@ -938,6 +965,7 @@ def check_split_post(syd, x, y, w, cont, nb, cfg, dev) -> dict:
             _same_next(want[0], got[0], prob, where)
             new_slot = got[0].open_range.pre["slot"]
             changed = int((new_slot != pre["slot"]).sum())
+            listed = got[0].open_range.n_live
             del want, got, new_slot
             ms = queued_ms(clones(21), 20)
             prof_ms = kernel_ms(clones(21), "split_post_", reps=20)
@@ -954,15 +982,18 @@ def check_split_post(syd, x, y, w, cont, nb, cfg, dev) -> dict:
             live = int((pre["slot"] >= 0).sum())
             waiting = int((pre["slot"] == -1).sum())
             b_ms, b_by = bound(rl.split_post_bytes(prob.n_cases, live,
-                                                   waiting, changed), 0)
+                                                   waiting, changed, listed),
+                               0)
             timed.append(dict(
                 superstep=step, open=pre["n_open"], live_cases=live,
-                waiting_cases=waiting, changed_slots=changed, ms=ms,
+                waiting_cases=waiting, changed_slots=changed,
+                listed_cases=listed, ms=ms,
                 profiler_ms=prof_ms, call_ms=call_s * 1e3, plain_ms=plain_ms,
                 plain_kernels=len(evs), plain_call_ms=plain_s * 1e3,
                 bound_ms=b_ms, bound_by=b_by))
             print(f"split_post at {where}: {pre['n_open']} open, {live} live "
-                  f"cases, {waiting} waiting, {changed} slots changed: "
+                  f"cases, {waiting} waiting, {changed} slots changed, "
+                  f"{listed} listed: "
                   f"{ms:.4f} ms (profiler {prof_ms:.4f}; a call "
                   f"{call_s * 1e3:.3f} ms wall), plain {plain_ms:.4f} ms in "
                   f"{len(evs)} kernels ({plain_s * 1e3:.3f} ms wall), bound "
@@ -1067,6 +1098,7 @@ def traced_build(name, ds, cfg, tree, info) -> dict:
 
     tr, reg = Tracer(), Registry()
     histogram.LAUNCHES = split_gain.LAUNCHES = split_post.LAUNCHES = 0
+    histogram.SOURCES.update(rows=0, list=0)
     (traced, rows), wall = _timed(lambda: frontier.build(
         ds, cfg, impl="cuda", collect_stats=True, tracer=tr, metrics=reg))
     launches = dict(frontier_histogram=histogram.LAUNCHES,
@@ -1090,6 +1122,10 @@ def traced_build(name, ds, cfg, tree, info) -> dict:
                            split_post=2 * steps),
           f"{name}: traced build launches {launches} != its {steps} "
           f"supersteps ({live} with live cases)")
+    # the root's histogram reads the rows, every later one the live list
+    sources = dict(histogram.SOURCES)
+    check(sources == dict(rows=1, list=live - 1), f"{name}: histogram "
+          f"sources {sources} for {live} supersteps with live cases")
     path = ROOT / "build" / f"trace_{name}.json"
     path.parent.mkdir(parents=True, exist_ok=True)
     tr.save(str(path))
@@ -1097,7 +1133,8 @@ def traced_build(name, ds, cfg, tree, info) -> dict:
     out = dict(dataset=name, supersteps=steps, traced_wall_s=wall,
                untraced_wall_s=info["build_cuda_s"],
                superstep_spans_s=summ["superstep"]["total_us"] / 1e6,
-               phase_s=phases, launches=launches, trees_equal=True,
+               phase_s=phases, launches=launches, sources=sources,
+               trees_equal=True,
                chrome_trace=str(path.relative_to(ROOT)))
     print(report.render(tracer=tr, metrics=reg))
     print(f"{name} traced: {wall:.3f} s against {info['build_cuda_s']:.3f}"

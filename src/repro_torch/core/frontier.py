@@ -17,17 +17,21 @@ children are opened, the open nodes are always one range of ids,
 ``impl="cuda"`` runs splitAtt on the hand-written CUDA kernels (histogram,
 then the fused split gain) and splitPost on two more (the node results and
 children, then the cases' routing: ``kernels.split_post``); ``impl="torch"``
-runs their plain versions.  With ``GrowConfig.compact`` set, both gather
-the live cases first.  Per-node state arrays carry one extra dump row
-(index M) that absorbs the writes of unused slots, in place of the JAX
-scatters' ``mode="drop"``; readers only look at rows below M.
+runs their plain versions.  With ``GrowConfig.compact`` set, the histogram
+counts the live cases alone: the ``cuda`` build's reads them through the
+list splitPost's routing kernel wrote (below), the others gather them
+first (``kernels.compaction``).  Per-node state arrays carry one extra
+dump row (index M) that absorbs the writes of unused slots, in place of
+the JAX scatters' ``mode="drop"``; readers only look at rows below M.
 
 The ``cuda`` build keeps the open range on the card (:class:`OpenRange`):
 splitPost's kernels also write the next superstep's splitPre, so its
-splitPre launches nothing and reads nothing, and the loop's test is one
-read of the range's two words.  A state without the range (the ``torch``
-build, a partitioned superstep, a state made by hand) takes the plain
-splitPre, which selects the frontier from ``status``.
+splitPre launches nothing and reads nothing, and the next superstep's live
+cases as a list, counted beside the range, so its splitAtt neither gathers
+nor waits; the loop's test is one read of the range's two words and the
+live count.  A state without the range (the ``torch`` build, a partitioned
+superstep, a state made by hand) takes the plain splitPre, which selects
+the frontier from ``status``, and the compaction's gather.
 
 A superstep also runs partitioned, on DTensors (``launch.specs``' yadt
 cell: the cases sharded over the mesh, the node arrays replicated).
@@ -50,15 +54,16 @@ test.  Each place the host waits for the card is a ``wait.*`` span around
 the read itself: ``wait.loop`` (the loop's test), ``wait.frontier`` (the
 plain splitPre's ``nonzero``), ``wait.compact`` (the compaction's
 ``nonzero``, inside splitAtt's ``compact`` span, which holds the whole
-gather of the live cases), ``wait.status`` (the root's status, written from a host
-scalar in the initial state, which torch copies to the device and waits
-for; the plain splitPost writes the new children's so too, the CUDA
-splitPost in its node kernel, ``kernels.split_post``) and ``wait.stats``
-(the one read of every superstep's statistics, after the loop).  The
-``cuda`` build so waits twice a superstep (``wait.loop``,
-``wait.compact``), the ``torch`` build four times.
-``kernel.histogram`` and ``kernel.split_gain`` time the host's calls of
-splitAtt's two kernels, ``kernel.split_post`` those of splitPost's two.
+gather of the live cases; on the ``cuda`` build ``compact`` holds only
+the handoff of the list and no wait), ``wait.status`` (the root's status,
+written from a host scalar in the initial state, which torch copies to the
+device and waits for; the plain splitPost writes the new children's so
+too, the CUDA splitPost in its node kernel, ``kernels.split_post``) and
+``wait.stats`` (the one read of every superstep's statistics, after the
+loop).  The ``cuda`` build so waits once a superstep (``wait.loop``), the
+``torch`` build four times.  ``kernel.histogram`` and ``kernel.split_gain``
+time the host's calls of splitAtt's two kernels, ``kernel.split_post``
+those of splitPost's two.
 """
 
 from __future__ import annotations
@@ -90,13 +95,21 @@ class OpenRange:
     """The open nodes as the id range ``[lo, n_nodes)`` on the card, and
     the coming superstep's splitPre, which splitPost's kernels write: the
     frontier is ``lo + arange(n_open)``, ``n_open = min(K, n_nodes - lo)``,
-    and a case's slot is its node less ``lo`` inside it."""
-    bounds: torch.Tensor       # int32 (2,): lo, n_nodes (the state's a view)
+    and a case's slot is its node less ``lo`` inside it.  The cases of slot
+    >= 0 (live), ``n_live`` of them, are listed in ``live``."""
+    # int32 (3,): lo, n_nodes (the state's a view), n_live
+    bounds: torch.Tensor
     # splitPre's outputs, which splitPost's kernels rewrite in place: the
     # K-wide planes, slot (int32 (N,): -1 an open node outside the
     # frontier, -2 a leaf) and n_open (host int, None until the range is
     # read)
     pre: dict[str, Any]
+    # int32 (N,), one buffer a build: its first n_live entries the live
+    # cases in no fixed order, which the routing kernel rewrites in place;
+    # not listed at the root, whose cases are all live
+    live: torch.Tensor
+    listed: bool = False
+    n_live: int | None = None  # read with the range by the loop's test
 
 
 @dataclasses.dataclass
@@ -163,15 +176,18 @@ def init_state(prob: FrontierProblem, y: torch.Tensor, w: torch.Tensor,
         n_nodes=torch.ones((), dtype=torch.int32, device=dev),
         overflow=torch.zeros((), dtype=torch.bool, device=dev))
     if open_range:
-        # (lo, n_nodes) = (0, 1), made on the card: no host value to copy
-        bounds = torch.arange(2, dtype=torch.int32, device=dev)
+        # (lo, n_nodes, n_live) = (0, 1, N), made on the card: no host
+        # value to copy
+        bounds = torch.arange(3, dtype=torch.int32, device=dev)
+        bounds[2:].fill_(prob.n_cases)
         j = torch.arange(cfg.frontier_slots, device=dev)
         pre = _stop_tests(tree, torch.where(j == 0, 0, m), cfg)
         state.n_nodes = bounds[1]
         state.open_range = OpenRange(
             bounds=bounds,
             pre=dict(pre, slot=torch.zeros_like(state.case_node),
-                     n_open=None))
+                     n_open=None),
+            live=torch.empty_like(state.case_node))
     return state
 
 
@@ -238,9 +254,12 @@ def _laid_state(local: GrowState, cases) -> GrowState:
 
 
 def _histogram(x, y, w, slot, *, n_open: int, prob: FrontierProblem,
-               impl: str, tracer=NULL):
+               impl: str, tracer=NULL, rng: OpenRange | None = None):
     """The (K, A, B+1, C) histogram; the cases lie in slots below
-    ``n_open``, which sizes the kernel's shared window.  Of DTensor cases,
+    ``n_open``, which sizes the kernel's shared window.  Compacted, the
+    ``cuda`` path's open range ``rng`` hands the kernel its list of the
+    live cases (none at the root, where every case is live); other states
+    gather the live cases (``compaction.live_cases``).  Of DTensor cases,
     the kernel's op (on CPU shards its CPU kernel, the plain version)
     counts each rank's cases, a partial sum over the mesh dims the cases
     are sharded on; without the ``yadt_compact`` knob every rank takes all
@@ -250,7 +269,12 @@ def _histogram(x, y, w, slot, *, n_open: int, prob: FrontierProblem,
               n_classes=prob.n_classes)
     if is_dtensor(x) and not active_cases_sharded():
         x, y, w, slot = (replicate(t) for t in (x, y, w, slot))
-    if cfg.compact:
+    listed = {}
+    if cfg.compact and impl == "cuda" and rng is not None:
+        with tracer.span("compact"):
+            if rng.listed:
+                listed = dict(case_list=rng.live, n_listed=rng.n_live)
+    elif cfg.compact:
         with tracer.span("compact"):
             x, y, w, slot = compaction.live_cases(x, y, w, slot,
                                                   tracer=tracer)
@@ -259,7 +283,7 @@ def _histogram(x, y, w, slot, *, n_open: int, prob: FrontierProblem,
             return ref.frontier_histogram_ref(x, y, w, slot, **kw)
         return histogram.frontier_histogram(
             x, y, w, slot, n_live_slots=n_open, block_t=cfg.block_t,
-            block_k=cfg.block_k, **kw)
+            block_k=cfg.block_k, **listed, **kw)
 
 
 def _gains(hist, total_w, attr_is_cont, n_bins, *, prob: FrontierProblem,
@@ -340,7 +364,7 @@ def split_att(state: GrowState, pre: dict, x: torch.Tensor, y: torch.Tensor,
     b_dim = prob.n_bins_max
     hist_u = shard_frontier_hist(_histogram(
         x, y, w, pre["slot"], n_open=pre["n_open"], prob=prob, impl=impl,
-        tracer=tracer))
+        tracer=tracer, rng=state.open_range))
     hist = hist_u[:, :, :b_dim, :]
     unknown = hist_u[:, :, b_dim, :]                              # (K, A, C)
     score, split_bin = _gains(hist, pre["total_w"], attr_is_cont, n_bins,
@@ -509,13 +533,15 @@ def _split_post_cuda(state: GrowState, pre: dict, att: dict,
     ``status``, ``active`` and ``case_node`` updated in place; ``n_nodes``,
     ``overflow`` and the statistics views of the node kernel's output.
     Of a state with the open range, the kernels also write the next
-    splitPre over ``pre``, in place: the routing kernel runs after the node
-    kernel, the planes' only reader.  Nothing waits for the card."""
+    splitPre over ``pre``, in place (the routing kernel runs after the node
+    kernel, the planes' only reader), and the next live list over the
+    range's (this superstep's histogram, its reader, ran before them on
+    the stream).  Nothing waits for the card."""
     cfg = prob.cfg
     rng = state.open_range
     ahead = {} if rng is None else dict(
         ahead=pre, lo=rng.bounds[0], min_objs=cfg.min_objs,
-        max_depth=cfg.max_depth)
+        max_depth=cfg.max_depth, live=rng.live)
     with tracer.span("kernel.split_post"):
         bounds, overflow, stats = post_kernels.split_post(
             state.tree, state.status, state.active, state.case_node,
@@ -525,7 +551,8 @@ def _split_post_cuda(state: GrowState, pre: dict, att: dict,
     tree = state.tree
     tree.n_nodes = bounds[1]
     nxt = None if rng is None else OpenRange(
-        bounds=bounds, pre=dict(pre, n_open=None))
+        bounds=bounds, pre=dict(pre, n_open=None), live=rng.live,
+        listed=True)
     return GrowState(tree=tree, status=state.status, active=state.active,
                      case_node=state.case_node, n_nodes=bounds[1],
                      overflow=overflow, open_range=nxt), stats
@@ -557,12 +584,12 @@ def superstep(state: GrowState, x: torch.Tensor, y: torch.Tensor,
 def _open_left(state: GrowState, cfg: GrowConfig, tracer) -> bool:
     """The loop's test, any node still open: the JAX build's
     ``lax.while_loop`` condition, a wait for the device here.  Of a state
-    with the open range, the one read of its two words, which also gives
-    the coming superstep's ``n_open``."""
+    with the open range, the one read of its three words, which also gives
+    the coming superstep's ``n_open`` and ``n_live``."""
     rng = state.open_range
     with tracer.span("wait.loop"):
         if rng is not None:
-            lo, n_nodes = rng.bounds.tolist()
+            lo, n_nodes, rng.n_live = rng.bounds.tolist()
             rng.pre["n_open"] = min(cfg.frontier_slots, n_nodes - lo)
             return n_nodes > lo
         return bool(torch.any(state.status[:cfg.max_nodes]

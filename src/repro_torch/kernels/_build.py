@@ -210,6 +210,13 @@ def count(lib: Library, label: str | None = None) -> None:
             getattr(mod, lib.by)[label] += 1
 
 
+def tally(counts: dict, key: str) -> None:
+    """Add 1 to ``counts[key]`` under the launch counters' lock (a count
+    of a wrapper's own beside the library's)."""
+    with _COUNT_LOCK:
+        counts[key] += 1
+
+
 def reset_counts(lib: Library) -> None:
     """Set ``lib``'s counters to 0."""
     mod = sys.modules[lib.counts]

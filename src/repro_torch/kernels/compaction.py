@@ -8,7 +8,10 @@ sized by the live count itself (one ``nonzero``, which waits for the device)
 and the histogram runs on exactly that many cases (a ``tracer`` times
 that wait as a ``wait.compact`` span).  The buffers pass
 through ``sharding.act.shard_active_cases`` as the JAX package's do (the
-identity on a plain tensor).
+identity on a plain tensor).  The ``impl="cuda"`` build's states, which
+keep the open range on the card, do not come here: splitPost's routing
+kernel lists their live cases and the histogram kernel reads the rows
+through that list (``core.frontier._histogram``), with no wait and no copy.
 
 Of DTensor cases (a partitioned superstep), ``nonzero`` has no DTensor
 strategy: each rank compacts its own shard, and the buffers are padded to

@@ -7,9 +7,10 @@
 // the formulation that module's docstring names for a GPU.
 //
 // What bounds it on the H100: device-memory bytes.  The function reads each
-// live case once (the x row 4A bytes, y, w and slot 4 bytes each) and writes
-// each non-zero output cell once; one add per (case, attribute) is far below
-// the card's scalar rate.
+// live case once (the x row 4A bytes, y, w and slot 4 bytes each; read
+// through a list, its index 4 bytes more) and writes each non-zero output
+// cell once; one add per (case, attribute) is far below the card's scalar
+// rate.
 //
 // Design (the plan, a pure function of the shapes, is autotune.HistPlan):
 //   * a block walks tiles of block_t consecutive cases (grid-stride), two
@@ -19,6 +20,13 @@
 //     one.  Each case row and slot is read once; slot and class fold into
 //     one output offset a case.  Threads then take the tile's (attribute,
 //     case) pairs, a warp 32 consecutive cases of one attribute;
+//   * given a list of cases (int32 row indices, the live cases that
+//     splitPost's routing kernel listed for this superstep), the n cases
+//     are the listed rows: tile case i is row list[t0 + i], and its x words,
+//     slot, y and w are copied by index (stage_listed) in place of a copy
+//     of the live rows gathered beforehand.  A list is written a warp's
+//     cases in ascending order, so a tile's rows mostly lie in runs.
+//     Without a list (null) the kernel reads rows [0, n) as above;
 //   * the grid follows the live count n: as many blocks as tiles, up to a
 //     few waves, so no block exists only to zero and flush;
 //   * "direct" plan (block_k = 0: every superstep but the densest): adds go
@@ -47,8 +55,8 @@
 // fill is the wrapper's torch.zeros, outside the kernel.
 //
 // Exactness: with integral weights and fewer than 2^24 cases per cell the
-// sums are exact whatever order the adds run in, so the result equals the
-// plain version bit for bit.  With non-integral weights the sums are exact
+// sums are exact whatever order the adds run in (a list's order included),
+// so the result equals the plain version bit for bit.  With non-integral weights the sums are exact
 // only to rounding (atomics run in no fixed order).
 //
 // Out-of-contract values (a bin above B, a class outside [0, C), a slot
@@ -130,11 +138,42 @@ __device__ __forceinline__ void stage(const Tile& t, const int32_t* x,
   copy_commit();
 }
 
+// Issue the copies of listed cases [t0, t0 + cnt): tile case i is row
+// list[t0 + i].  The x loop reads its rows' indices again, from L1.
+__device__ __forceinline__ void stage_listed(
+    const Tile& t, const int32_t* x, const int32_t* y, const float* w,
+    const int32_t* slot, const int32_t* list, int64_t t0, int cnt,
+    int n_attrs, int a_pad) {
+  const int32_t* rows = list + t0;
+  for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
+    const int64_t r = __ldg(rows + i);
+    copy4(t.code + i, slot + r);
+    copy4(t.yv + i, y + r);
+    copy4(t.wv + i, w + r);
+  }
+  // word j = (case i, attribute a): a warp's consecutive words lie in the
+  // rows of a few cases
+  const int words = cnt * n_attrs;
+  int i = threadIdx.x / n_attrs, a = threadIdx.x - i * n_attrs;
+  const int di = blockDim.x / n_attrs, da = blockDim.x - di * n_attrs;
+  for (int j = threadIdx.x; j < words; j += blockDim.x) {
+    copy4(t.xs + i * a_pad + a, x + (int64_t)__ldg(rows + i) * n_attrs + a);
+    i += di;
+    a += da;
+    if (a >= n_attrs) {
+      a -= n_attrs;
+      ++i;
+    }
+  }
+  copy_commit();
+}
+
 __global__ void __launch_bounds__(512) frontier_histogram_kernel(
     const int32_t* __restrict__ x, const int32_t* __restrict__ y,
     const float* __restrict__ w, const int32_t* __restrict__ slot,
-    float* __restrict__ out, int64_t n, int n_attrs, int n_slots, int n_live,
-    int n_bins, int n_classes, int block_k, int block_t) {
+    const int32_t* __restrict__ list, float* __restrict__ out, int64_t n,
+    int n_attrs, int n_slots, int n_live, int n_bins, int n_classes,
+    int block_k, int block_t) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
   const int a_pad = n_attrs | 1;               // odd stride: no bank conflict
@@ -156,17 +195,22 @@ __global__ void __launch_bounds__(512) frontier_histogram_kernel(
   auto tile_cases = [&](int64_t t) {
     return n - t < block_t ? (int)(n - t) : block_t;
   };
+  auto put = [&](float* base, int64_t t) {
+    const Tile tile = tile_at(base, block_t, a_pad);
+    if (list)
+      stage_listed(tile, x, y, w, slot, list, t, tile_cases(t), n_attrs,
+                   a_pad);
+    else
+      stage(tile, x, y, w, slot, t, tile_cases(t), n_attrs, a_pad);
+  };
   int64_t t0 = (int64_t)blockIdx.x * block_t;
-  if (t0 < n)
-    stage(tile_at(smem, block_t, a_pad), x, y, w, slot, t0, tile_cases(t0),
-          n_attrs, a_pad);
+  if (t0 < n) put(smem, t0);
   for (int it = 0; t0 < n; t0 += stride, ++it) {
     const Tile cur = tile_at(smem + (it & 1) * tile_floats, block_t, a_pad);
     const int cnt = tile_cases(t0);
     const int64_t t1 = t0 + stride;
     if (t1 < n) {
-      stage(tile_at(smem + (~it & 1) * tile_floats, block_t, a_pad), x, y,
-            w, slot, t1, tile_cases(t1), n_attrs, a_pad);
+      put(smem + (~it & 1) * tile_floats, t1);
       copy_wait<1>();
     } else {
       copy_wait<0>();
@@ -259,10 +303,10 @@ __global__ void __launch_bounds__(512) frontier_histogram_kernel(
 static int g_smem_attr = 48 * 1024;
 
 extern "C" int frontier_histogram_launch(
-    const void* x, const void* y, const void* w, const void* slot, void* out,
-    long long n, int n_attrs, int n_slots, int n_live, int n_bins,
-    int n_classes, int block_k, int block_t, int blocks, int windows,
-    int threads, int smem, void* stream) {
+    const void* x, const void* y, const void* w, const void* slot,
+    const void* list, void* out, long long n, int n_attrs, int n_slots,
+    int n_live, int n_bins, int n_classes, int block_k, int block_t,
+    int blocks, int windows, int threads, int smem, void* stream) {
   if (smem > g_smem_attr) {
     cudaError_t err = cudaFuncSetAttribute(
         frontier_histogram_kernel,
@@ -273,8 +317,8 @@ extern "C" int frontier_histogram_launch(
   frontier_histogram_kernel<<<dim3(blocks, windows), threads, smem,
                               (cudaStream_t)stream>>>(
       (const int32_t*)x, (const int32_t*)y, (const float*)w,
-      (const int32_t*)slot, (float*)out, (int64_t)n, n_attrs, n_slots,
-      n_live, n_bins, n_classes, block_k, block_t);
+      (const int32_t*)slot, (const int32_t*)list, (float*)out, (int64_t)n,
+      n_attrs, n_slots, n_live, n_bins, n_classes, block_k, block_t);
   return (int)cudaGetLastError();
 }
 

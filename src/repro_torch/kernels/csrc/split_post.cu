@@ -17,8 +17,9 @@
 // for a case of a node split this superstep, one bin of its row (a 32-byte
 // sector) and writes its node; writing the next frontier, it also reads
 // the node of a case waiting outside the frontier and writes a slot that
-// changes (4 bytes each).  The torch version moved ~2.5 GB a superstep at
-// full width in int64 temporaries.
+// changes and a next live case's index in the list (4 bytes each).  The
+// torch version moved ~2.5 GB a superstep at full width in int64
+// temporaries.
 //
 // Node kernel (grid K, 256 threads; block r takes slot r):
 //   * every block scans the K slots' child counts itself (nch: 2 for a
@@ -27,8 +28,8 @@
 //     (n_nodes + the exclusive prefix) and whether the superstep overflows
 //     the capacity (then every slot becomes a leaf) without a second pass;
 //   * block 0 also reduces the superstep's statistics and writes them, with
-//     the new overflow, lo and n_nodes, into stats (9 words), and zeroes the
-//     active-case count the routing kernel adds to;
+//     the new overflow, lo and n_nodes, into stats (10 words), and zeroes
+//     the two case counts the routing kernel adds to (active, next live);
 //   * block r writes its node's row (ids[r]; an invalid slot's id is the
 //     dump row M), and for a split node its children: the class
 //     frequencies (continuous: the best attribute's bins up to and above
@@ -61,7 +62,19 @@
 //     row M past n_open'), valid, ids_safe, total_w (the node's class
 //     frequencies summed in class order), depth_k and pre_leaf (pure,
 //     below 2 min_objs, or at max_depth), as the plain split_pre computes
-//     them from the node rows the node kernel has written.
+//     them from the node rows the node kernel has written;
+//   * into a list (int32 (N,)), the next superstep's live cases: each
+//     case whose next slot is >= 0 appends its index, and the count goes to
+//     the stats word n_live beside lo' and n_nodes', which the host reads
+//     with them at the loop's test.  The histogram of the next superstep
+//     reads its cases through the list, so nothing gathers the live rows
+//     and nothing waits for a count in splitAtt.  Each warp keeps its
+//     listed cases in shared memory, in case order, over LIST_PASSES passes
+//     of the block; then the block takes its place in the list with one
+//     atomic on n_live and copies them out.  So a launch makes about
+//     N / (256 LIST_PASSES) atomics on that one word, and the blocks'
+//     stretches of the list lie in no fixed order (the histogram's sums do
+//     not depend on it, csrc/histogram.cu).
 //
 // Exactness: the children's frequencies and weights are sums of the
 // histogram's cells; with integral weights below 2^24 they are exact in
@@ -80,6 +93,9 @@
 #define THREADS 256
 #define WARPS (THREADS / 32)
 #define ROUTE_BLOCKS_MAX 2048
+// passes of the routing kernel's block between two copies of its listed
+// cases from shared memory into the list (8 KB of shared memory a block)
+#define LIST_PASSES 8
 
 #define STATUS_OPEN 1
 #define STATUS_INTERNAL 2
@@ -89,7 +105,8 @@
 // the slot of a case whose node is a leaf (the next frontier only)
 #define SLOT_CLOSED -2
 
-// stats words (kernels/split_post.py STATS, then lo and n_nodes)
+// stats words (kernels/split_post.py STATS, then lo, n_nodes and the next
+// superstep's live cases)
 #define ST_PROCESSED 0
 #define ST_ACTIVE 1
 #define ST_INTERNAL 2
@@ -99,6 +116,7 @@
 #define ST_OVERFLOW 6
 #define ST_LO 7
 #define ST_N_NODES 8
+#define ST_LIVE 9
 
 // cost models (core/cost_models.py COST_MODELS)
 #define MODEL_ALPHA 0
@@ -139,7 +157,7 @@ struct NodeArgs {
   const uint8_t* overflow;   // 0-d
   const int32_t* lo;         // 0-d, the open range's first id; null: 0
   int4* route;               // (K,)
-  int32_t* stats;            // 9 words
+  int32_t* stats;            // 10 words
   int k, a, b, c, m;
   int cost_model;
   float n_total, alpha;
@@ -271,6 +289,7 @@ split_post_nodes_kernel(const NodeArgs p) {
       p.stats[ST_OVERFLOW] = (*p.overflow || over) ? 1 : 0;
       p.stats[ST_LO] = (p.lo ? *p.lo : 0) + n_valid;
       p.stats[ST_N_NODES] = n0 + children;
+      p.stats[ST_LIVE] = 0;                    // the routing kernel adds
     }
     __syncthreads();                           // s_best_v is reused below
   }
@@ -444,44 +463,93 @@ __device__ __forceinline__ void next_slot(const NextArgs& q, int j, int lo,
   q.pre_leaf[j] = nonzero <= 1 || tw < q.min_w || depth >= q.max_depth;
 }
 
+// Route case i (i < n); returns its slot after this kernel: with the next
+// frontier (ahead) its next slot, else its slot as it was.  live counts
+// the cases of slot >= 0.
+__device__ __forceinline__ int route_case(
+    int64_t i, int32_t* slot, const int32_t* __restrict__ x,
+    const int4* __restrict__ route, int32_t* __restrict__ case_node,
+    int n_attrs, int k, bool ahead, int lo, int n_open, int& live) {
+  const int s = slot[i];
+  int node;
+  if (s < 0) {
+    if (!ahead || s == SLOT_CLOSED) return s;
+    node = case_node[i];                       // open, outside the frontier
+  } else {
+    ++live;
+    if (s >= k) return s;
+    const int4 e = __ldg(route + s);
+    if (e.x < 0) {                             // the node did not split
+      if (!ahead) return s;
+      slot[i] = SLOT_CLOSED;
+      return SLOT_CLOSED;
+    }
+    const int b = __ldg(x + i * n_attrs + e.x);
+    const int j = b < 0 ? (e.w >> 1) : ((e.w & 1) ? (b <= e.y ? 0 : 1) : b);
+    node = e.z + j;
+    case_node[i] = node;
+  }
+  if (!ahead) return s;
+  const unsigned d = (unsigned)(node - lo);
+  const int next = d < (unsigned)n_open ? (int)d : -1;
+  if (next != s) slot[i] = next;
+  return next;
+}
+
 __global__ void __launch_bounds__(THREADS)
 split_post_route_kernel(int32_t* slot, const int32_t* __restrict__ x,
                         const int4* __restrict__ route,
                         int32_t* __restrict__ case_node, int32_t* stats,
-                        int64_t n, int n_attrs, int k, const NextArgs q) {
+                        int32_t* __restrict__ list, int64_t n, int n_attrs,
+                        int k, const NextArgs q) {
   __shared__ int s_warp[WARPS];
-  const bool ahead = q.ids != nullptr;
+  // each warp's listed cases since the block's last copy into the list,
+  // then the warps' offsets in the block's stretch and the stretch's start
+  __shared__ int s_list[THREADS * LIST_PASSES];
+  __shared__ int s_off[WARPS + 1];
+  const bool ahead = q.ids != nullptr;       // and so the list
   const int lo = ahead ? stats[ST_LO] : 0;
   const int n_open = ahead ? min(k, stats[ST_N_NODES] - lo) : 0;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t first = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   const int64_t stride = (int64_t)gridDim.x * THREADS;
   if (ahead)
     for (int64_t j = first; j < k; j += stride) next_slot(q, (int)j, lo, n_open);
   int live = 0;
-  for (int64_t i = first; i < n; i += stride) {
-    const int s = slot[i];
-    int node;
-    if (s < 0) {
-      if (!ahead || s == SLOT_CLOSED) continue;
-      node = case_node[i];                     // open, outside the frontier
-    } else {
-      ++live;
-      if (s >= k) continue;
-      const int4 e = __ldg(route + s);
-      if (e.x < 0) {                           // the node did not split
-        if (ahead) slot[i] = SLOT_CLOSED;
-        continue;
+  int* held = s_list + warp * 32 * LIST_PASSES;
+  int n_held = 0;                              // the same in every lane
+  // the block's passes run together (the list's copies are block-wide)
+  for (int64_t i = first, pass = 0; i - threadIdx.x < n;
+       i += stride, ++pass) {
+    const int after =
+        i < n ? route_case(i, slot, x, route, case_node, n_attrs, k, ahead,
+                           lo, n_open, live)
+              : -1;
+    if (!ahead) continue;
+    const bool keep = after >= 0;
+    const unsigned m = __ballot_sync(FULL, keep);
+    if (keep) held[n_held + __popc(m & ((1u << lane) - 1u))] = (int)i;
+    n_held += __popc(m);
+    if (pass % LIST_PASSES != LIST_PASSES - 1 &&
+        i - threadIdx.x + stride < n)
+      continue;
+    // the block's stretch of the list: one atomic, then each warp's cases
+    if (lane == 0) s_off[warp] = n_held;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int total = 0;
+      for (int w = 0; w < WARPS; ++w) {
+        const int c = s_off[w];
+        s_off[w] = total;
+        total += c;
       }
-      const int b = __ldg(x + i * n_attrs + e.x);
-      const int j = b < 0 ? (e.w >> 1) : ((e.w & 1) ? (b <= e.y ? 0 : 1) : b);
-      node = e.z + j;
-      case_node[i] = node;
+      s_off[WARPS] = total ? atomicAdd(stats + ST_LIVE, total) : 0;
     }
-    if (ahead) {
-      const unsigned d = (unsigned)(node - lo);
-      const int next = d < (unsigned)n_open ? (int)d : -1;
-      if (next != s) slot[i] = next;
-    }
+    __syncthreads();
+    int32_t* dst = list + s_off[WARPS] + s_off[warp];
+    for (int j = lane; j < n_held; j += 32) dst[j] = held[j];
+    n_held = 0;
+    __syncwarp();                              // before held is rewritten
   }
   live = block_sum(live, s_warp);
   if (threadIdx.x == 0 && live) atomicAdd(stats + ST_ACTIVE, live);
@@ -549,11 +617,12 @@ extern "C" int split_post_nodes_launch(
 
 extern "C" int split_post_route_launch(
     void* slot, const void* x, const void* route, void* case_node,
-    void* stats, long long n, int a, int k, void* ids, void* valid,
+    void* stats, void* list, long long n, int a, int k, void* ids,
+    void* valid,
     void* ids_safe, void* total_w, void* depth_k, void* pre_leaf,
     const void* node_freq, const void* node_depth, int c, int m,
     float min_w, int max_depth, void* stream) {
-  if (ids && (c < 1 || m < 1)) return (int)cudaErrorInvalidValue;
+  if (ids && (c < 1 || m < 1 || !list)) return (int)cudaErrorInvalidValue;
   NextArgs q;
   q.ids = (int64_t*)ids;
   q.valid = (uint8_t*)valid;
@@ -573,7 +642,8 @@ extern "C" int split_post_route_launch(
   split_post_route_kernel<<<(unsigned)blocks, THREADS, 0,
                             (cudaStream_t)stream>>>(
       (int32_t*)slot, (const int32_t*)x, (const int4*)route,
-      (int32_t*)case_node, (int32_t*)stats, (int64_t)n, a, k, q);
+      (int32_t*)case_node, (int32_t*)stats, (int32_t*)list, (int64_t)n, a, k,
+      q);
   return (int)cudaGetLastError();
 }
 

@@ -15,10 +15,13 @@ writes, so nothing is read back to the host and nothing waits.  Given
 ``ahead`` (a state whose open nodes are the id range ``[lo, n_nodes)``,
 ``core.frontier.OpenRange``), the routing kernel also writes the next
 superstep's splitPre: ``ahead``'s K-wide planes, and ``pre["slot"]`` in
-place.  The frontier engine's ``impl="cuda"`` build then waits for the card
-once a superstep outside splitAtt, at the loop's read of the range: its
-splitPre launches nothing and reads nothing.  No custom op: only the
-frontier engine calls it, on a state it owns.
+place, and the next superstep's live cases (next slot >= 0) into ``live``
+as a list, counted beside the range.  The frontier engine's
+``impl="cuda"`` build then waits for the card once a superstep, at the
+loop's read of the range and the live count: its splitPre launches nothing
+and reads nothing, and its splitAtt's histogram reads the live cases
+through the list.  No custom op: only the frontier engine calls it, on a
+state it owns.
 """
 
 from __future__ import annotations
@@ -31,8 +34,8 @@ from repro_torch.kernels import _build
 # use: two a superstep).
 LAUNCHES = 0
 
-# The statistics' words in the node kernel's output, then the new lo and
-# n_nodes.
+# The statistics' words in the node kernel's output, then the new lo,
+# n_nodes and the next superstep's live cases (the open range's words).
 STATS = ("n_processed", "n_active", "n_internal", "n_children", "max_r",
          "nap_nodes", "overflow")
 COST_MODELS = ("alpha", "nlogn", "nsq")        # core.cost_models' order
@@ -40,7 +43,7 @@ COST_MODELS = ("alpha", "nlogn", "nsq")        # core.cost_models' order
 _LIB = _build.Library(
     "split_post", "split_post_error", counts=__name__,
     entries={"split_post_nodes_launch": "7p 2q p 2q 20p 6i 2f",
-             "split_post_route_launch": "5p q 2i 8p 2i f i"})
+             "split_post_route_launch": "6p q 2i 8p 2i f i"})
 _INT32_MAX = 2 ** 31 - 1
 
 # (name, dtype) of splitPre's K-wide planes
@@ -59,14 +62,15 @@ def split_post(tree, status: torch.Tensor, active: torch.Tensor,
                n_bins: torch.Tensor, *, cost_model: str,
                n_total_cases: float, alpha: float, ahead: dict | None = None,
                lo: torch.Tensor | None = None, min_objs: float | None = None,
-               max_depth: int | None = None
+               max_depth: int | None = None, live: torch.Tensor | None = None
                ) -> tuple[torch.Tensor, torch.Tensor, dict]:
     """splitPost of one superstep on the card: ``tree``'s node arrays
     (M + 1 rows, row M the dump row), ``status``, ``active`` and
     ``case_node`` updated in place from splitPre's ``pre`` and splitAtt's
     ``att`` (the keys :func:`repro_torch.core.frontier.split_pre` and
-    ``split_att`` return).  Returns the new open range ``(lo, n_nodes)``
-    (int32 (2,); ``lo`` counts from ``lo``'s value, 0 without it), the new
+    ``split_att`` return).  Returns the new open range and live count
+    ``(lo, n_nodes, n_live)`` (int32 (3,); ``lo`` counts from ``lo``'s
+    value, 0 without it; ``n_live`` 0 without ``ahead``), the new
     ``overflow`` and the statistics, the keys of :data:`STATS` (0-d int32
     views, ``max_r`` float32, ``overflow`` bool).
 
@@ -79,7 +83,9 @@ def split_post(tree, status: torch.Tensor, active: torch.Tensor,
     superstep's splitPre for open nodes that are the id range ``[lo,
     n_nodes)`` (``lo`` 0-d int32): the planes into ``ahead``, each case's
     slot into ``pre["slot"]`` (-2 once its node is a leaf), with
-    ``min_objs`` and ``max_depth`` the stop tests'."""
+    ``min_objs`` and ``max_depth`` the stop tests', and into ``live``
+    (int32 (N,)) the indices of the cases whose next slot is >= 0,
+    ``n_live`` of them in no fixed order."""
     if cost_model not in COST_MODELS:
         raise ValueError(f"unknown cost model {cost_model!r}; choose from "
                          f"{COST_MODELS}")
@@ -130,14 +136,23 @@ def split_post(tree, status: torch.Tensor, active: torch.Tensor,
     # the routing kernel's next frontier: its planes and stop tests
     planes, min_w, depth_cap = [None] * len(_PRE), 0.0, 0
     if ahead is not None:
-        if lo is None or min_objs is None or max_depth is None:
-            raise ValueError("the next frontier needs lo, min_objs and "
-                             "max_depth")
+        if lo is None or min_objs is None or max_depth is None or (
+                live is None):
+            raise ValueError("the next frontier needs lo, min_objs, "
+                             "max_depth and live")
         for name, dtype in _PRE:
             _build.check(ahead[name], f"ahead {name}", dtype, (k,))
         nxt += [ahead[name] for name, _ in _PRE]
         planes = [ahead[name].data_ptr() for name, _ in _PRE]
         min_w, depth_cap = 2.0 * min_objs, min(max_depth, _INT32_MAX)
+        if n > _INT32_MAX:
+            raise ValueError(f"{n} cases: the live list's int32 indices "
+                             "hold at most 2^31 - 1")
+        _build.check(live, "live", torch.int32, (n,))
+        nxt.append(live)
+    elif live is not None:
+        raise ValueError("the live list is the next frontier's: it needs "
+                         "ahead")
     _build.check(x, "x", torch.int32, (n, a_dim))
     _build.check(attr_is_cont, "attr_is_cont", torch.bool, (a_dim,))
     _build.check(n_bins, "n_bins", torch.int32, (a_dim,))
@@ -153,7 +168,7 @@ def split_post(tree, status: torch.Tensor, active: torch.Tensor,
                          f"device, got {sorted({str(t.device) for t in ins})}")
 
     route = torch.empty((k, 4), dtype=torch.int32, device=dev)
-    words = torch.empty((len(STATS) + 2,), dtype=torch.int32, device=dev)
+    words = torch.empty((len(STATS) + 3,), dtype=torch.int32, device=dev)
     _build.launch(
         _LIB, "split_post_nodes_launch", dev,
         *(pre[name].data_ptr() for name, _ in _PRE),
@@ -173,7 +188,8 @@ def split_post(tree, status: torch.Tensor, active: torch.Tensor,
     _build.launch(
         _LIB, "split_post_route_launch", dev, pre["slot"].data_ptr(),
         x.data_ptr(), route.data_ptr(), case_node.data_ptr(),
-        words.data_ptr(), n, a_dim, k, *planes, tree.node_freq.data_ptr(),
+        words.data_ptr(), None if live is None else live.data_ptr(), n,
+        a_dim, k, *planes, tree.node_freq.data_ptr(),
         tree.node_depth.data_ptr(), c_dim, m1 - 1, min_w, depth_cap)
     w = words.unbind()
     stats = dict(zip(STATS, w))

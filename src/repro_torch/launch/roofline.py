@@ -132,10 +132,11 @@ def flash_bwd_bytes(b: int, sq: int, h: int, kv: int, d: int, itemsize: int,
             + b * h * sq * 4)
 
 
-def histogram_bytes(n: int, a: int, cells: int) -> int:
+def histogram_bytes(n: int, a: int, cells: int, listed: bool = False) -> int:
     """Each case row (A int32 bins, label, weight, slot) read once, each of
-    ``cells`` output cells written once."""
-    return n * (4 * a + 12) + 4 * cells
+    ``cells`` output cells written once; read through a list of cases,
+    each case's int32 index in it too."""
+    return n * (4 * a + 12 + (4 if listed else 0)) + 4 * cells
 
 
 def histogram_ops(n: int, a: int) -> int:
@@ -155,14 +156,15 @@ def split_gain_ops(k: int, a: int, b: int, c: int) -> int:
 
 
 def split_post_bytes(n: int, live: int, waiting: int = 0,
-                     changed: int = 0) -> int:
+                     changed: int = 0, listed: int = 0) -> int:
     """splitPost's routing: each case's int32 slot read once; a live case's
     bin of its node's split attribute read and its new node written (the
     node kernel's K rows are negligible beside N).  Writing the next
     frontier (an open range) it also reads the node of each of the
-    ``waiting`` cases (slot -1: an open node outside the frontier) and
-    writes each of the ``changed`` slots."""
-    return n * 4 + live * 8 + waiting * 4 + changed * 4
+    ``waiting`` cases (slot -1: an open node outside the frontier), writes
+    each of the ``changed`` slots and the int32 index of each of the
+    ``listed`` cases that are live in the next superstep."""
+    return n * 4 + live * 8 + waiting * 4 + changed * 4 + listed * 4
 
 
 def traversal_bytes(n: int, a: int, t: int, rows: int) -> int:
@@ -196,7 +198,9 @@ def _flash_bwd_bytes(args) -> int:
 def _histogram_bytes(args) -> int:
     x, n_slots, n_bins, n_classes = args[0], args[4], args[5], args[6]
     n, a = _shape(x)
-    return histogram_bytes(n, a, n_slots * a * (n_bins + 1) * n_classes)
+    listed = len(args) > 10 and args[10] is not None
+    return histogram_bytes(args[11] if listed else n, a,
+                           n_slots * a * (n_bins + 1) * n_classes, listed)
 
 
 def _split_gain_bytes(args) -> int:

@@ -294,3 +294,95 @@ def test_split_pre_with_and_without_the_open_range(open_range, read):
             assert torch.equal(pre[key], want), key
         else:
             assert pre[key] == want, key
+
+
+def test_loop_test_reads_the_range_and_the_live_count():
+    """The ``cuda`` build's loop test is one read of the open range's three
+    words (lo, n_nodes, n_live): ``n_open`` goes into the coming splitPre,
+    ``n_live`` (the live cases splitPost's routing kernel listed) onto the
+    range.  The root's range reads (0, 1, N), with no list yet: every case
+    is live."""
+    from repro_torch.obs.trace import NULL
+    ds = _walk_set("syd10m9a")
+    cfg = GrowConfig(max_nodes=4096, frontier_slots=16)
+    prob = frontier.FrontierProblem.from_dataset(ds, cfg)
+    _, y, w, _, _ = as_tensors(ds)
+    state = frontier.init_state(prob, y, w, open_range=True)
+    rng = state.open_range
+    assert rng.bounds.tolist() == [0, 1, ds.n_cases]
+    assert int(state.n_nodes) == 1 and not rng.listed and rng.n_live is None
+    assert rng.live.dtype == torch.int32
+    assert rng.live.shape == (ds.n_cases,)
+    assert frontier._open_left(state, cfg, NULL)
+    assert (rng.pre["n_open"], rng.n_live) == (1, ds.n_cases)
+    # ranges as splitPost's kernels leave them
+    for lo, n_nodes, n_live, n_open in ((100, 140, 7, 16), (100, 105, 3, 5),
+                                        (140, 140, 0, 0)):
+        state.open_range = frontier.OpenRange(
+            bounds=torch.tensor([lo, n_nodes, n_live], dtype=torch.int32),
+            pre=dict(rng.pre, n_open=None), live=rng.live, listed=True)
+        assert frontier._open_left(state, cfg, NULL) == (n_nodes > lo)
+        assert state.open_range.pre["n_open"] == n_open
+        assert state.open_range.n_live == n_live
+
+
+@pytest.mark.parametrize("where", ["root", "listed", "uncompacted"])
+def test_cuda_histogram_reads_the_open_range_list(where, monkeypatch):
+    """On the ``cuda`` path, a state with the open range and ``compact`` set
+    hands splitAtt's histogram the routing kernel's list of the live cases
+    and the count the loop's test read: no compaction (no ``nonzero``, no
+    ``wait.compact``, no gathered copy), a ``compact`` span around the
+    handoff.  At the root (no list yet, every case live) and uncompacted it
+    passes the rows themselves and no list.  The kernel is stood in for by
+    the plain version over the rows the list names, in the list's order
+    (shuffled: the routing kernel lists in no fixed order)."""
+    from repro_torch.kernels import compaction, histogram, ref
+    from repro_torch.obs import Tracer
+    from repro_torch.obs.trace import NULL
+    ds = _walk_set("syd10m9a")
+    cfg = GrowConfig(max_nodes=4096, frontier_slots=16,
+                     compact=where != "uncompacted")
+    prob = frontier.FrontierProblem.from_dataset(ds, cfg)
+    x, y, w, _, _ = as_tensors(ds)
+    state = frontier.init_state(prob, y, w, open_range=True)
+    rng = state.open_range
+    slot = rng.pre["slot"]
+    n_live = ds.n_cases
+    if where != "root":
+        g = torch.Generator().manual_seed(5)
+        slot.copy_(torch.randint(-2, 16, slot.shape, generator=g,
+                                 dtype=torch.int32))
+        live = torch.nonzero(slot >= 0).flatten().to(torch.int32)
+        n_live = live.numel()
+        rng.live[:n_live] = live[torch.randperm(n_live, generator=g)]
+        rng.bounds[1:] = torch.tensor([20, n_live], dtype=torch.int32)
+        rng.listed = True
+    assert frontier._open_left(state, cfg, NULL)
+    kw = dict(n_slots=16, n_bins=prob.n_bins_max, n_classes=prob.n_classes)
+    calls = []
+
+    def kernel(x, y, w, slot, *, case_list=None, n_listed=None, **plan):
+        calls.append((x, case_list, n_listed))
+        if case_list is not None:
+            rows = case_list[:n_listed].long()
+            x, y, w, slot = (t[rows] for t in (x, y, w, slot))
+        return ref.frontier_histogram_ref(x, y, w, slot, **kw)
+
+    def gathered(*args, **kwargs):
+        raise AssertionError("the open range's cases were gathered")
+    monkeypatch.setattr(histogram, "frontier_histogram", kernel)
+    monkeypatch.setattr(compaction, "live_cases", gathered)
+    tr = Tracer()
+    pre = frontier.split_pre(state, prob=prob)
+    hist = frontier._histogram(x, y, w, pre["slot"], n_open=pre["n_open"],
+                               prob=prob, impl="cuda", tracer=tr, rng=rng)
+    assert torch.equal(hist, ref.frontier_histogram_ref(x, y, w, slot, **kw))
+    spans = tr.span_summary()
+    assert "wait.compact" not in spans
+    assert ("compact" in spans) == cfg.compact
+    (got_x, got_list, got_n), = calls
+    assert got_x is x
+    if where == "listed":
+        assert got_list is rng.live and got_n == n_live < ds.n_cases
+    else:
+        assert got_list is None and got_n is None

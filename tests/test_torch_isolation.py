@@ -278,20 +278,34 @@ def test_split_post_wrapper_refuses_a_non_contiguous_input(name):
     ("no lo", ValueError, "needs lo"),
     ("ids int32", TypeError, "ahead ids must be"),
     ("total_w short", ValueError, "ahead total_w has shape"),
-    ("lo int64", TypeError, "lo must be")])
+    ("lo int64", TypeError, "lo must be"),
+    ("no live", ValueError, "needs lo, min_objs, max_depth and live"),
+    ("live int64", TypeError, "live must be"),
+    ("live short", ValueError, "live has shape"),
+    ("live without ahead", ValueError, "live list is the next frontier's")])
 def test_split_post_wrapper_refuses_a_malformed_next_frontier(fault, error,
                                                               match):
-    """The next frontier's planes, ``lo`` and the stop tests' parameters
-    are checked as splitPre's are: a missing one, a wrong dtype or shape
-    is refused before any launch."""
+    """The next frontier's planes, ``lo``, the stop tests' parameters and
+    the live list are checked as splitPre's are: a missing one, a wrong
+    dtype or shape is refused before any launch; a live list without the
+    next frontier too."""
     from repro_torch.kernels import split_post
     _, state, pre, att, data = _root_superstep()
     ahead = {name: torch.empty_like(pre[name]) for name in (
         "ids", "valid", "ids_safe", "total_w", "depth_k", "pre_leaf")}
     nxt = dict(ahead=ahead, lo=torch.zeros((), dtype=torch.int32),
-               min_objs=2.0, max_depth=64)
+               min_objs=2.0, max_depth=64,
+               live=torch.empty_like(pre["slot"]))
     if fault == "no lo":
         nxt["lo"] = None
+    elif fault == "no live":
+        nxt["live"] = None
+    elif fault == "live int64":
+        nxt["live"] = nxt["live"].long()
+    elif fault == "live short":
+        nxt["live"] = nxt["live"][:-1]
+    elif fault == "live without ahead":
+        nxt = dict(live=nxt["live"])
     elif fault == "ids int32":
         ahead["ids"] = ahead["ids"].int()
     elif fault == "total_w short":

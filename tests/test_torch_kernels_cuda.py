@@ -132,6 +132,60 @@ def test_histogram_kernel_counts_slots_beyond_the_hint(dev):
         assert torch.equal(got, want), (hint, pins)
 
 
+# (name, N, A, B, C, K, live slots) of the list's regimes: the deep
+# supersteps' direct adds, one slot dense enough for a shared window,
+# census_pums' width
+LIST_REGIMES = [
+    ("20% live over 256 slots", 500_000, 9, 256, 2, 256, 256),
+    ("20% live in one slot", 400_000, 9, 256, 2, 256, 1),
+    ("census shape, 20% live over 256 slots", 100_000, 40, 128, 2, 256, 256),
+]
+
+
+@pytest.mark.parametrize("regime", LIST_REGIMES, ids=lambda r: r[0])
+@pytest.mark.parametrize("pins", [{}, dict(block_k=0),
+                                  dict(block_k=1, block_t=96)],
+                         ids=["planned", "direct", "shared-1-slot-windows"])
+def test_histogram_through_a_list_equals_the_gathered_rows(dev, regime,
+                                                           pins):
+    """The kernel reading the live cases through a list of their indices
+    (shuffled: the routing kernel lists in no fixed order; the buffer's
+    entries past the count are junk) equals, bit for bit, the kernel on
+    ``compaction.live_cases``' gathered copy of them (integral weights) and
+    the plain version, under the same plan; it counts a launch under
+    ``SOURCES["list"]``."""
+    from repro_torch.kernels import autotune, compaction, histogram, ref
+    _, n, a, b, c, k, live = regime
+    rng = np.random.default_rng(n + a + live)
+    x = rng.integers(-1, b, (n, a)).astype(np.int32)
+    for col, card in zip(range(a - 3, a), (5, 9, 20)):
+        x[:, col] = rng.integers(0, card, n)
+    slot = rng.integers(0, live, n).astype(np.int32)
+    slot[rng.random(n) >= 0.2] = -1
+    args = [torch.as_tensor(v, device=dev) for v in (
+        x, rng.integers(0, c, n).astype(np.int32),
+        rng.integers(0, 4, n).astype(np.float32), slot)]
+    listed = np.flatnonzero(slot >= 0)
+    buf = rng.integers(0, n, n).astype(np.int32)       # junk past the count
+    buf[:listed.size] = rng.permutation(listed)
+    buf = torch.as_tensor(buf, device=dev)
+    kw = dict(n_slots=k, n_bins=b, n_classes=c, n_live_slots=live, **pins)
+    gathered = histogram.frontier_histogram(
+        *compaction.live_cases(*args), **kw)
+    sources = dict(histogram.SOURCES)
+    plans = dict(histogram.PLANS)
+    got = histogram.frontier_histogram(*args, case_list=buf,
+                                       n_listed=listed.size, **kw)
+    torch.cuda.synchronize()
+    mode = autotune.plan_histogram(n_cases=listed.size, n_attrs=a,
+                                   **kw).mode
+    assert histogram.SOURCES == {**sources, "list": sources["list"] + 1}
+    assert histogram.PLANS == {**plans, mode: plans[mode] + 1}
+    assert torch.equal(got, gathered)
+    assert torch.equal(got, ref.frontier_histogram_ref(*args, n_slots=k,
+                                                       n_bins=b, n_classes=c))
+
+
 @pytest.mark.parametrize("criterion", ["gain", "gain_ratio"])
 @pytest.mark.parametrize("k,a,b,c", [(4, 3, 8, 2), (10, 5, 13, 4),
                                      (16, 6, 13, 23), (7, 5, 300, 3),
@@ -436,6 +490,53 @@ def test_split_pre_of_an_open_range_launches_nothing(dev):
     assert ops and card, (ops, card)
 
 
+@pytest.mark.parametrize("name,max_nodes,slots", [
+    ("syd", 1 << 12, 64), ("syd", 1 << 12, 8), ("waveform40", 1 << 12, 32)],
+    ids=["syd", "syd-8-slots", "waveform40"])
+def test_routing_kernel_lists_the_next_live_cases(dev, name, max_nodes,
+                                                  slots):
+    """Every superstep of the ``cuda`` build's loop, from the root to the
+    last, whose next frontier holds no case: the list splitPost's routing
+    kernel wrote holds, as a set, exactly the cases of next slot >= 0
+    (``nonzero``), each once, and the range's third word (what the loop's
+    test reads as ``n_live``) is their count; the histogram of the next
+    superstep reads its cases through that list (``SOURCES["list"]``)."""
+    from repro_torch.core import frontier
+    from repro_torch.core.config import GrowConfig
+    from repro_torch.kernels import histogram
+    from repro_torch.obs.trace import NULL
+    from _frontier_sets import as_tensors
+    ds = _post_walk_dataset(name)
+    cfg = GrowConfig(max_nodes=max_nodes, frontier_slots=slots)
+    prob = frontier.FrontierProblem.from_dataset(ds, cfg)
+    x, y, w, cont, nb = as_tensors(ds, dev)
+    state = frontier.init_state(prob, y, w, open_range=True)
+    counts = []
+    steps = 0
+    while frontier._open_left(state, cfg, NULL):
+        rng = state.open_range
+        assert rng.listed == (steps > 0)
+        pre = frontier.split_pre(state, prob=prob)
+        before = histogram.SOURCES["list"]
+        att = frontier.split_att(state, pre, x, y, w, cont, nb, prob=prob,
+                                 impl="cuda")
+        assert histogram.SOURCES["list"] - before == (
+            steps > 0 and rng.n_live > 0)
+        state, _ = frontier.split_post(state, pre, att, x, cont, nb,
+                                       prob=prob, impl="cuda")
+        nxt = state.open_range
+        n_live = int(nxt.bounds[2])
+        want = torch.nonzero(nxt.pre["slot"] >= 0).flatten()
+        got = nxt.live[:n_live].long()
+        assert n_live == want.numel(), steps
+        assert torch.equal(torch.sort(got).values, want), steps
+        assert nxt.live is rng.live and nxt.listed
+        counts.append(n_live)
+        steps += 1
+    assert steps > 5 and counts[-1] == 0 and max(counts) > 0, counts
+    assert any(0 < v < ds.n_cases for v in counts), counts
+
+
 @pytest.mark.parametrize("model", ["alpha", "nlogn", "nsq"])
 @pytest.mark.parametrize("k,a,b,c,h,spare", [
     (64, 9, 64, 2, 20, 500), (32, 41, 70, 23, 70, 2000), (5, 3, 4, 3, 4, 40),
@@ -539,9 +640,12 @@ def test_traced_build_equals_untraced_on_the_card(dev):
     no wait for the card) grows the untraced tree, with a span of each
     phase, each wait and each kernel call a superstep (``wait.status``
     once, the root's; no ``wait.frontier``: splitPre reads the frontier
-    splitPost's kernels wrote), and a histogram and split-gain launch and two
-    splitPost launches each superstep; the registry holds the frontier's
-    counters and gauges and no ``frontier_phase_seconds``."""
+    splitPost's kernels wrote; no ``wait.compact``: the histogram reads the
+    live cases through the list they wrote, a ``compact`` span a superstep
+    around the handoff), and a histogram and split-gain launch and two
+    splitPost launches each superstep, the histogram's through the list
+    past the root; the registry holds the frontier's counters and gauges
+    and no ``frontier_phase_seconds``."""
     from repro_torch.core import frontier
     from repro_torch.core.config import GrowConfig
     from repro_torch.core.tree import trees_equal
@@ -553,24 +657,28 @@ def test_traced_build_equals_untraced_on_the_card(dev):
     plain = frontier.build(ds, cfg, impl="cuda")
     tr, reg = Tracer(), Registry()
     h0, g0, p0 = histogram.LAUNCHES, split_gain.LAUNCHES, split_post.LAUNCHES
+    s0 = dict(histogram.SOURCES)
     traced, rows = frontier.build(ds, cfg, impl="cuda", collect_stats=True,
                                   tracer=tr, metrics=reg)
     assert trees_equal(plain, traced)
     summ = tr.span_summary()
     for span in ("superstep", "splitPre", "splitAtt", "splitPost",
-                 "compact", "wait.compact",
-                 "kernel.histogram", "kernel.split_gain",
+                 "compact", "kernel.histogram", "kernel.split_gain",
                  "kernel.split_post"):
         assert summ[span]["count"] == len(rows), span
     assert summ["wait.loop"]["count"] == len(rows) + 1
-    # splitPre reads the frontier splitPost's kernels wrote: no wait
-    assert "wait.frontier" not in summ
+    # splitPre reads the frontier splitPost's kernels wrote, the histogram
+    # the live cases they listed: no wait for either
+    assert "wait.frontier" not in summ and "wait.compact" not in summ
     # the root's status write alone: the CUDA splitPost writes none
     for span in ("entry.copy", "entry.init", "wait.stats", "wait.status"):
         assert summ[span]["count"] == 1, span
     assert split_gain.LAUNCHES - g0 == len(rows)
     assert split_post.LAUNCHES - p0 == 2 * len(rows)
     assert histogram.LAUNCHES - h0 == sum(r["n_active"] > 0 for r in rows)
+    assert histogram.SOURCES["rows"] - s0["rows"] == 1      # the root
+    assert histogram.SOURCES["list"] - s0["list"] == sum(
+        r["n_active"] > 0 for r in rows[1:])
     assert "frontier_phase_seconds" not in reg.snapshot()
     assert set(reg.snapshot()) == {
         "frontier_supersteps_total", "frontier_active_cases",
@@ -585,11 +693,11 @@ def test_tracer_adds_one_synchronising_call_a_build(dev, monkeypatch):
     stats a build makes exactly one more than the untraced build of the
     same tree, the one read of the statistics after the loop, and the
     same calls at every other line.  Past the entry's copies of the rows
-    (``build``'s own lines) the untraced build makes exactly 2N + 2, at
+    (``build``'s own lines) the untraced build makes exactly N + 2, at
     the traced ``wait.*`` spans' lines: the loop's N + 1 reads of the open
-    range, the compaction's ``nonzero`` a superstep, the root's status
-    write.  splitPre and splitPost make none: no call in their lines nor
-    in splitPost's kernels' wrapper."""
+    range and its live count, the root's status write.  splitPre,
+    splitAtt's compaction and splitPost make none: no call in their lines
+    nor in the compaction's module or splitPost's kernels' wrapper."""
     import collections
     import inspect
     import warnings
@@ -648,12 +756,12 @@ def test_tracer_adds_one_synchronising_call_a_build(dev, monkeypatch):
     entry = lines(frontier.build)
     quiet = [*lines(frontier.split_pre), *lines(frontier.split_post),
              *lines(frontier._split_post_cuda)]
-    assert not [site for site in untraced if site[0] == "split_post.py"
+    assert not [site for site in untraced
+                if site[0] in ("split_post.py", "compaction.py")
                 or site[0] == "frontier.py" and site[1] in quiet], untraced
     waits = sum(n for (f, line), n in untraced.items()
-                if f == "compaction.py"
-                or f == "frontier.py" and line not in entry)
-    assert waits == 2 * n_steps + 2, (untraced, n_steps)
+                if f == "frontier.py" and line not in entry)
+    assert waits == n_steps + 2, (untraced, n_steps)
 
 
 def test_concurrent_builds_from_threads(dev):

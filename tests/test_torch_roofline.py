@@ -195,3 +195,60 @@ def test_split_post_bound_counts_slots_and_live_cases(n, live, waiting,
     assert got == ((4 * n + 8 * live + 4 * waiting + 4 * changed)
                    / OLD_HBM * 1e3, "bytes")
     assert got[0] == pytest.approx(want_ms, abs=5e-5)
+
+
+@pytest.mark.parametrize("n,live,waiting,changed,listed", [
+    (10_000_000, 10_000_000, 0, 10_000_000, 10_000_000),
+    (10_000_000, 21_620, 1_000_000, 500_000, 20_000), (1, 0, 0, 0, 0)],
+    ids=["syd-root-listed", "syd-superstep-500-listed", "n1-none-listed"])
+def test_split_post_bound_counts_listed_cases(n, live, waiting, changed,
+                                              listed):
+    """Writing the next superstep's live list, the routing kernel writes
+    4 bytes of index a listed case, on top of the bound without a list."""
+    assert rl.split_post_bytes(n, live, waiting, changed, listed) == (
+        rl.split_post_bytes(n, live, waiting, changed) + 4 * listed)
+    assert rl.split_post_bytes(n, live, waiting, changed, listed) == (
+        4 * n + 8 * live + 4 * waiting + 4 * changed + 4 * listed)
+
+
+@pytest.mark.parametrize("listed", [0, 137, 1000])
+def test_histogram_through_a_list_counts_the_listed_cases_on_meta(listed):
+    """The histogram's op read through a list of cases counts one add per
+    (listed case, attribute) and reads each listed case's row, label,
+    weight, slot and index once; on meta tensors it launches nothing."""
+    from repro_torch.kernels import histogram
+    n, a, k, nb, c = 1000, 9, 16, 32, 2
+    meta = dict(device="meta")
+    x = torch.empty((n, a), dtype=torch.int32, **meta)
+    v = torch.empty((n,), dtype=torch.int32, **meta)
+    w = torch.empty((n,), **meta)
+    before = histogram.LAUNCHES
+    hist, cost = rl.count_costs(
+        lambda *t: histogram.frontier_histogram(
+            *t[:4], n_slots=k, n_bins=nb, n_classes=c, case_list=t[4],
+            n_listed=listed), x, v, w, v, v)
+    assert hist.shape == (k, a, nb + 1, c) and histogram.LAUNCHES == before
+    cells = k * a * (nb + 1) * c
+    assert cost.device_flops == rl.histogram_ops(listed, a) == listed * a
+    assert cost.device_bytes == rl.histogram_bytes(listed, a, cells,
+                                                   listed=True)
+    assert cost.device_bytes == listed * (4 * a + 16) + 4 * cells
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(n_listed=5), "without a case_list"),
+    (dict(case_list="v", n_listed=None), "outside the list"),
+    (dict(case_list="v", n_listed=1001), "outside the list"),
+    (dict(case_list="v64", n_listed=3), "must be int32")])
+def test_histogram_refuses_a_malformed_list(bad, match):
+    from repro_torch.kernels import histogram
+    n, a = 1000, 9
+    x = torch.empty((n, a), dtype=torch.int32, device="meta")
+    v = torch.empty((n,), dtype=torch.int32, device="meta")
+    w = torch.empty((n,), device="meta")
+    lists = {"v": v, "v64": v.long()}
+    kw = {key: lists.get(val, val) if key == "case_list" else val
+          for key, val in bad.items()}
+    with pytest.raises((TypeError, ValueError), match=match):
+        histogram.frontier_histogram(x, v, w, v, n_slots=4, n_bins=8,
+                                     n_classes=2, **kw)
