@@ -11,7 +11,8 @@ over the task DAG, which depends on the tree shape, not on UCI semantics).
 ``load(name, scale=...)`` subsamples the case count for CPU-budget runs;
 benchmarks record the scale they used.  ``load`` also makes the
 deployments of ``GENERATED``, which are stated generators rather than
-stand-ins for a Table 1 file.
+stand-ins for a Table 1 file: Waveform-40 (``data/waveform.py``) and
+Poker-Hand (``data/pokerhand.py``), each by its own generator.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import dataclasses
 import numpy as np
 
 from repro_torch.core.binning import BinnedDataset, fit
-from repro_torch.data import quest, waveform
+from repro_torch.data import pokerhand, quest, waveform
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,8 +48,10 @@ TABLE1: dict[str, TableOneSpec] = {
 }
 
 # Deployments beside Table 1's, each a stated generator at Table 1's
-# largest scale: name -> full case count.  Waveform-40: data/waveform.py.
-GENERATED: dict[str, int] = {"waveform40": 10_000_000}
+# largest scale: name -> (full case count, its generator's ``generate``).
+# Waveform-40: data/waveform.py; Poker-Hand: data/pokerhand.py.
+GENERATED = {"waveform40": (10_000_000, waveform.generate),
+             "pokerhand10m": (10_000_000, pokerhand.generate)}
 
 
 def _random_tree_labels(x_cols: list[np.ndarray], is_cont: list[bool],
@@ -89,8 +92,9 @@ def load(name: str, *, scale: float = 1.0, seed: int = 0,
     """Materialise a Table-1 stand-in, or a deployment of ``GENERATED``, at
     ``scale`` of its full size."""
     if name in GENERATED:
-        n = max(256, int(GENERATED[name] * scale))
-        return waveform.generate(n, seed=seed, max_bins=max_bins)
+        n_cases, generate = GENERATED[name]
+        return generate(max(256, int(n_cases * scale)), seed=seed,
+                        max_bins=max_bins)
     spec = TABLE1[name]
     n = max(256, int(spec.n_cases * scale))
     if name == "syd10m9a":
